@@ -1,11 +1,14 @@
 """clark-torch — command line of the PyTorch/CUDA port.
 
 Subcommands (reference equivalents):
+    db build         kent -d build step / cuCLARK DB construction
     classify         kent -c / classify_metagenome.sh / cuCLARK[-l]
 
-Only single-end classification against a resident table on one device is
-ported; the other subcommands of `jn_cuclark_tpu.cli` (db, abundance, merge,
-report, verify, cluster) wait for ROADMAP A8-A10.
+Classification (single-end, paired-end, --extended) runs against a resident
+table on one device.  The other `db` workflows (set-targets,
+update-taxonomy, download-*, clean) and the other subcommands of
+`jn_cuclark_tpu.cli` (abundance, merge, report, verify, cluster) wait for
+ROADMAP A9-A10; the `db` ones are listed and raise.
 
 Run `python -m jn_cuclark_tpu_torch.cli classify --help` for flags.
 """
@@ -18,6 +21,7 @@ import gzip
 import os
 import sys
 import tempfile
+import time
 
 
 def _profile_from_args(args, cfg=None):
@@ -46,10 +50,6 @@ def _check_slice(args):
     """Reject flags whose modes are not ported yet, naming the ROADMAP item."""
     from .engine import _not_ported
 
-    if args.paired:
-        raise _not_ported("paired-end classification (-P)", "A6")
-    if args.extended:
-        raise _not_ported("extended output (--extended)", "A6")
     if args.shard_db or args.dp or (args.devices and args.devices > 1):
         raise _not_ported("multi-device classification (-d/--dp/--shard-db)",
                           "A9")
@@ -118,32 +118,55 @@ def _cmd_classify(args):
         os.environ["OMP_NUM_THREADS"] = str(args.threads)
     clf = _load_classifier(args)
 
-    objects = args.objects
+    objects, paired, results = args.objects, args.paired, args.results
     with tempfile.TemporaryDirectory() as td:
         if args.gzipped:
-            objects = _maybe_gunzip(objects, td)
-        # multi-file list mode: an objects file whose first byte is not a
-        # record start lists input files, line-aligned with a list of
-        # result names (CuCLARK_hh.hh:384-429)
-        pairs = []
-        with open(objects, "rb") as f:
-            first = f.read(1)
-        if first in (b">", b"@"):
-            pairs.append((objects, args.results))
+            if objects:
+                objects = _maybe_gunzip(objects, td)
+            if paired:
+                paired = [_maybe_gunzip(p, td) for p in paired]
+        # multi-file list mode: an objects file (or, paired, an R1 file)
+        # whose first byte is not a record start lists input files,
+        # line-aligned with a list of result names (CuCLARK_hh.hh:384-429,
+        # 483-502)
+        jobs = []
+        if paired:
+            with open(paired[0], "rb") as f:
+                first = f.read(1)
+            if first == b"@":
+                jobs.append((paired[0], paired[1], results))
+            else:
+                with open(paired[0]) as f1, open(paired[1]) as f2, open(
+                    results
+                ) as fr:
+                    for l1, l2, lr in zip(f1, f2, fr):
+                        l1, l2, lr = l1.strip(), l2.strip(), lr.strip()
+                        if l1 and l2 and lr:
+                            jobs.append((l1, l2, lr))
         else:
-            with open(objects) as fo, open(args.results) as fr:
-                for oline, rline in zip(fo, fr):
-                    oline, rline = oline.strip(), rline.strip()
-                    if oline and rline:
-                        pairs.append((oline, rline))
+            with open(objects, "rb") as f:
+                first = f.read(1)
+            if first in (b">", b"@"):
+                jobs.append((objects, None, results))
+            else:
+                with open(objects) as fo, open(results) as fr:
+                    for oline, rline in zip(fo, fr):
+                        oline, rline = oline.strip(), rline.strip()
+                        if oline and rline:
+                            jobs.append((oline, None, rline))
 
         from .utils import profiling
 
-        for obj, res in pairs:
+        for obj, mate, res in jobs:
             print(f"Classifying: {obj}", file=sys.stderr)
             ctx = profiling.collect() if args.profile else contextlib.nullcontext()
             with ctx as phases:
-                stats = clf.classify_file(obj, res)
+                stats = clf.classify_file(obj, res, paired_path=mate,
+                                          extended=args.extended)
+            if args.verbose and stats.get("hit_stats") is not None:
+                # distinct-targets-hit distribution, as the reference prints
+                # after its extended writer (CuCLARK_hh.hh:2064-2067)
+                print(stats["hit_stats"].report(), file=sys.stderr)
             print(
                 f"Done in {stats['seconds']:.1f}s "
                 f"({stats['reads_per_min']} reads/min, {stats['reads']} reads)",
@@ -153,6 +176,34 @@ def _cmd_classify(args):
             if phases is not None:
                 print(phases.summary(), file=sys.stderr)
     return 0
+
+
+def cmd_db_build(args):
+    from . import database
+
+    cfg = database.DBConfig.load(args.db)
+    prof = _profile_from_args(args, cfg)
+    t0 = time.time()
+    db = database.build(
+        cfg,
+        profile=prof,
+        k=args.k,
+        gap=args.gap,
+        min_count_target=args.min_freq_target,
+        tsk=args.tsk,
+        device=args.device,
+    )
+    print(
+        f"Database built: {len(db.canonical)} discriminative k-mers "
+        f"({db.n_mother} distinct) in {time.time() - t0:.1f}s"
+    )
+    return 0
+
+
+def cmd_db_not_ported(args):
+    from .engine import _not_ported
+
+    raise _not_ported(f"db {args.dbcmd}", "A10")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -166,6 +217,38 @@ def build_parser() -> argparse.ArgumentParser:
                    version=f"clark-torch {__version__}")
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    def add_profile_flags(sp):
+        sp.add_argument("-k", type=int, default=None, help="k-mer length")
+        sp.add_argument("--light", action="store_true",
+                        help="light profile (cuCLARK-l)")
+        sp.add_argument("--full", action="store_true",
+                        help="full profile (cuCLARK)")
+        sp.add_argument("--htsize", type=int, default=None,
+                        help="custom hash-table size")
+        sp.add_argument("-g", "--gap", type=int, default=None,
+                        help="light-mode k-mer gap")
+        sp.add_argument("-t", "--min-freq-target", type=int, default=None,
+                        help="minimum k-mer frequency in targets")
+
+    pd = sub.add_parser("db", help="database workflows")
+    dsub = pd.add_subparsers(dest="dbcmd", required=True)
+    pb = dsub.add_parser("build", help="build the discriminative k-mer database")
+    pb.add_argument("db", help="database directory (with config.json)")
+    add_profile_flags(pb)
+    pb.add_argument("--tsk", action="store_true",
+                    help="write per-target .ht files")
+    pb.add_argument("--device", nargs="?", const="cuda", default=None,
+                    help="aggregate k-mers on a torch device: cuda (the "
+                    "default when the flag is given: torch.sort + the "
+                    "hand-written K6 kernel) or cpu (its plain-PyTorch "
+                    "twin); without the flag, the native host aggregate")
+    pb.set_defaults(fn=cmd_db_build)
+    for name in ("set-targets", "update-taxonomy", "download-taxonomy",
+                 "download-genomes", "clean"):
+        pn = dsub.add_parser(name, help="not ported yet (ROADMAP A10)")
+        pn.add_argument("rest", nargs="*", help=argparse.SUPPRESS)
+        pn.set_defaults(fn=cmd_db_not_ported)
+
     pc = sub.add_parser("classify", help="classify reads against a database")
     pc.add_argument("-D", "--db", required=True, help="database directory")
     pc.add_argument("-O", "--objects", help="reads file (or list of files)")
@@ -173,19 +256,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="targets definition file (default: the one recorded "
                     "in config.json)")
     pc.add_argument("-P", "--paired", nargs=2, metavar=("R1", "R2"),
-                    help="paired-end FASTQ files (not ported yet)")
+                    help="paired-end FASTQ files (or two line-aligned lists "
+                    "of them)")
     pc.add_argument("-R", "--results", required=True,
                     help="results path (.csv appended)")
-    pc.add_argument("-k", type=int, default=None, help="k-mer length")
-    pc.add_argument("--light", action="store_true",
-                    help="light profile (cuCLARK-l)")
-    pc.add_argument("--full", action="store_true", help="full profile (cuCLARK)")
-    pc.add_argument("--htsize", type=int, default=None,
-                    help="custom hash-table size")
-    pc.add_argument("-g", "--gap", type=int, default=None,
-                    help="light-mode k-mer gap")
-    pc.add_argument("-t", "--min-freq-target", type=int, default=None,
-                    help="minimum k-mer frequency in targets")
+    add_profile_flags(pc)
     pc.add_argument("-s", "--sampling-factor", type=int, default=1)
     pc.add_argument("-n", "--threads", type=int, default=None,
                     help="host threads for the native runtime (default: all)")
@@ -196,9 +271,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="accepted for cuCLARK compatibility; batching is "
                     "automatic")
     pc.add_argument("--extended", action="store_true",
-                    help="per-target score columns (not ported yet)")
+                    help="per-target score columns")
     pc.add_argument("--verbose", action="store_true",
-                    help="accepted for cuCLARK command-line compatibility")
+                    help="with --extended, print the distinct-targets-hit "
+                    "report (MIN/MAX/AVG) to stderr")
     pc.add_argument("--gzipped", action="store_true", help="inputs are gzipped")
     pc.add_argument("-d", "--devices", type=int, default=None,
                     help="devices to shard over (not ported yet)")

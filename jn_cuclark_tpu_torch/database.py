@@ -1,18 +1,41 @@
-"""Database directory configuration (`<db>/config.json`).
+"""Database directory workflow (`<db>/config.json`, the kent -d /
+set_targets.sh layout):
 
-Only `DBConfig` is ported so far: `classify -D <db>` reads the targets file,
-the sub-directory holding the `.tsk` files and the profile from it.  The
-`db set-targets` / `db build` workflows (taxonomy, builder) wait for ROADMAP
-A8 and A10.
+    <db>/Custom/*.f*          reference genome FASTA files
+    <db>/taxonomy/            NCBI dump: nodes.dmp names.dmp merged.dmp ...
+                              + nucl_accss (accession2taxid)
+    <db>/targets.txt          "<file>\t<taxid-at-rank>" per genome
+    <db>/custom_<rank>_canonical/   discriminative k-mer DB (.sz/.ky/.lb)
+    <db>/config.json          replaces scripts/.settings + .DBDirectory
+
+`classify -D <db>` reads the targets file, the sub-directory holding the
+`.tsk` files and the profile from `config.json`; `db build` (re)builds the
+DB it names.  `db set-targets`, which writes `targets.txt` and
+`config.json` from the taxonomy, waits for ROADMAP A10.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
 import os
 
+from .db import builder
+from .io.targets import parse_targets
 from .params import FULL, LIGHT, Profile
+
+TAXONOMY_FILES = [
+    "citations.dmp",
+    "delnodes.dmp",
+    "division.dmp",
+    "gc.prt",
+    "gencode.dmp",
+    "images.dmp",
+    "merged.dmp",
+    "names.dmp",
+    "nodes.dmp",
+]
 
 
 @dataclasses.dataclass
@@ -50,3 +73,65 @@ class DBConfig:
     def load(cls, db_dir: str) -> "DBConfig":
         with open(os.path.join(db_dir, "config.json")) as f:
             return cls(**json.load(f))
+
+
+def check_layout(db_dir: str, require_accession_map: bool = True) -> list[str]:
+    """Validate the database directory; returns a list of problems (empty =
+    OK).  Mirrors kent.cpp check_database."""
+    problems = []
+    if not os.path.isdir(db_dir):
+        return [f"database directory not found: {db_dir}"]
+    custom = os.path.join(db_dir, "Custom")
+    if not os.path.isdir(custom):
+        problems.append(f"missing {custom}/")
+    elif not find_sequence_files(db_dir):
+        problems.append(f"no sequence files (*.f*) in {custom}/")
+    taxdir = os.path.join(db_dir, "taxonomy")
+    if not os.path.isdir(taxdir):
+        problems.append(f"missing {taxdir}/")
+    else:
+        for fn in TAXONOMY_FILES:
+            if not os.path.exists(os.path.join(taxdir, fn)):
+                problems.append(f"missing taxonomy/{fn}")
+        if require_accession_map and not os.path.exists(
+            os.path.join(taxdir, "nucl_accss")
+        ):
+            problems.append("missing taxonomy/nucl_accss (accession2taxid)")
+    return problems
+
+
+def find_sequence_files(db_dir: str) -> list[str]:
+    """`find Custom/ -name '*.f*'` (make_metadata.sh:88)."""
+    pat = os.path.join(db_dir, "Custom", "**", "*.f*")
+    return sorted(glob.glob(pat, recursive=True))
+
+
+def build(
+    cfg: DBConfig,
+    profile: Profile | None = None,
+    k: int | None = None,
+    gap: int | None = None,
+    min_count_target: int | None = None,
+    tsk: bool = False,
+    device=None,
+):
+    """Build (or rebuild) the discriminative k-mer DB for a configured
+    database directory; `device` as in builder.build_database (None: the
+    native host aggregate)."""
+    profile = profile or cfg.profile
+    k = k if k is not None else (cfg.k or profile.default_k)
+    gap = gap if gap is not None else cfg.gap
+    minT = min_count_target if min_count_target is not None else cfg.min_count_target
+    targets = parse_targets(cfg.targets)
+    db = builder.build_database(
+        targets, cfg.subdb, profile, k, min_count_target=minT, gap=gap,
+        tsk=tsk, device=device,
+    )
+    cfg.profile_name = profile.name
+    cfg.htsize = profile.htsize
+    cfg.light = profile.light
+    cfg.k = k
+    cfg.gap = gap
+    cfg.min_count_target = minT
+    cfg.save()
+    return db

@@ -7,7 +7,7 @@ torch device with the standard radix table resident:
   host (native C++): streamed record scan, 2-bit/validity packing into
                      fixed-stride [R, S] rows (utils/native.py, ops/pack.py);
   device (torch):    window extraction + canonicalization, radix-table
-                     probe and per-read top-2 (ops/device_pipeline.py) —
+                     probe and per-read scoring (ops/device_pipeline.py) —
                      hand-written CUDA kernels on a CUDA device, their
                      plain-PyTorch twins on the CPU;
   host (native C++): Gamma/Confidence in doubles and C-printf `%g` CSV
@@ -15,9 +15,15 @@ torch device with the standard radix table resident:
                      (Gamma = sum / (len - k + 1), Confidence =
                      best/(best+s_best), CuCLARK_hh.hh:2042-2051, 2110-2118).
 
-Modes outside this slice (extended and paired output, out-of-core cycling,
-the dense table, device meshes, concurrent files, the flat path) raise
-NotImplementedError naming their ROADMAP item.
+Paired-end input merges the mates into one read with NBN `N`s between them
+(native chunked merger, file.cc:205-268); Gamma's length then excludes the
+NBN.  Extended output adds one count column per target: below 65,535
+targets from each read's sorted per-window label row (kernel K4, expanded
+by the native formatter), at 65,535 from dense per-read counts (K5).
+
+Modes outside this slice (out-of-core cycling, the dense table, device
+meshes, concurrent files, the flat path) raise NotImplementedError naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import dataclasses
 import itertools
 import os
 import queue
+import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -36,14 +43,18 @@ import numpy as np
 import torch
 
 from .io import dbformat
-from .io.fasta import iter_record_cuts, iter_record_slabs
+from .io.fasta import iter_merged_slabs, iter_record_cuts, iter_record_slabs
 from .io.targets import TargetsDef, parse_targets
 from .ops import device_pipeline, radix_table
-from .params import Profile
+from .params import NBN, Profile
 from .utils import native
 from .utils.profiling import maybe_phase
 
 RESERVED = 768 << 20  # device headroom beyond the table and batch transients
+# device bytes of one batch's dense [R, T+1] count matrix (extended output
+# at 65,535 targets): rows per batch are capped to fit it.  The CSV does
+# not depend on batch shapes.
+DENSE_COUNTS_BYTES = 256 << 20
 
 
 @dataclasses.dataclass
@@ -183,6 +194,48 @@ class _ScanStream:
         return tuple(out)
 
 
+class HitStats:
+    """Distinct-targets-hit-per-read accumulator (extended runs only),
+    mirroring the reference's nonzero_count MIN/MAX/AVG stderr report
+    (CuCLARK_hh.hh:1979-1980, 2053-2067)."""
+
+    def __init__(self, n_targets: int):
+        self.min = n_targets  # m_targetsName.size()-1 initial value
+        self.max = 0
+        self.sum = 0
+        self.n = 0
+
+    def update_counts(self, counts: np.ndarray):
+        """Dense [R, T+1] count rows -> per-read distinct target counts."""
+        self._update(np.count_nonzero(counts[:, 1:], axis=1))
+
+    def update_runs(self, runs: np.ndarray):
+        """Sorted per-window label rows [R, W] (zeros-first) -> distinct
+        label count per row."""
+        if runs.shape[1] == 0:
+            self._update(np.zeros(runs.shape[0], np.int64))
+            return
+        d = ((runs[:, 1:] != runs[:, :-1]) & (runs[:, 1:] > 0)).sum(axis=1)
+        self._update(d + (runs[:, 0] > 0))
+
+    def _update(self, d: np.ndarray):
+        if len(d):
+            self.min = min(self.min, int(d.min()))
+            self.max = max(self.max, int(d.max()))
+            self.sum += int(d.sum())
+        self.n += len(d)
+
+    def report(self) -> str:
+        """The reference's exact stderr line: AVG in float32 like
+        `(float)nonzero_sum / m_nbObjects` (CuCLARK_hh.hh:2064-2067)."""
+        with np.errstate(invalid="ignore"):
+            avg = np.float32(self.sum) / np.float32(self.n)
+        return (
+            f"MIN targets: {self.min}, MAX targets: {self.max}, "
+            f"AVG targets: {'%g' % avg}"
+        )
+
+
 def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to jn_cuclark_tpu_torch yet (ROADMAP {item})"
@@ -275,10 +328,10 @@ class Classifier:
         self.table = radix_table.to_device(table, self.device)
         self.names = native.NamesBuffer(self.target_names)
 
-    def batch_fn(self, words, vwords, probe_cols=None):
+    def batch_fn(self, words, vwords, extended=False, probe_cols=None):
         return device_pipeline.classify_batch(
             self.table, words, vwords, k=self.k, n_targets=self.n_targets,
-            probe_cols=probe_cols,
+            extended=extended, probe_cols=probe_cols,
         )
 
     # ------------------------------------------------------------------ load
@@ -306,9 +359,20 @@ class Classifier:
             folder, profile.db_stem(k, targets.n_targets, min_count_target, g)
         )
         if not dbformat.db_exists(stem):
-            raise FileNotFoundError(
-                f"database {stem}.(sz|ky|lb) not found (recovering it from "
-                "per-target .ht files is ROADMAP A8)"
+            # recover from per-target .ht files if present
+            # (CuCLARK_hh.hh:633-684)
+            from .db.recovery import recover_central_db
+
+            if not recover_central_db(
+                folder, targets, profile, k, min_count_target, gap=g
+            ):
+                raise FileNotFoundError(
+                    f"database {stem}.(sz|ky|lb) not found, nor per-target "
+                    ".ht files to recover it from"
+                )
+            print(
+                "The database was recovered from saved targets-specific data.",
+                file=sys.stderr,
             )
         # device-index cache: keyed on a content signature of the DB files;
         # valid only for unsampled loads (sampling changes the key set)
@@ -346,13 +410,17 @@ class Classifier:
 
     # -------------------------------------------------------------- classify
     def classify_bytes(self, data: bytes, paired: bool = False,
-                       extended: bool = False):
-        """Classify one in-memory FASTA/FASTQ file; returns (rows, n_reads),
-        rows a generator of formatted CSV body chunks (whole lines)."""
-        self._check_mode(paired, extended)
+                       extended: bool = False,
+                       hit_stats: HitStats | None = None):
+        """Classify one in-memory FASTA/FASTQ file (with paired=True, mates
+        already merged, as merge_paired gives them); returns (rows,
+        n_reads), rows a generator of formatted CSV body chunks (whole
+        lines).  `hit_stats` (extended runs only) accumulates the
+        reference's MIN/MAX/AVG distinct-targets-hit report."""
         n_reads = native.quick_count(data)
         scan = _ScanStream(data, self.plan.scan_chunk_bytes)
-        return self._classify_native(data, scan), n_reads
+        return self._classify_native(data, scan, paired, extended,
+                                     hit_stats), n_reads
 
     def classify_file(
         self,
@@ -363,33 +431,40 @@ class Classifier:
         verbose: bool = False,
         slab_bytes: int = 1 << 28,
     ) -> dict:
-        """Classify a FASTA/FASTQ file to `<result_path>.csv`.
+        """Classify a file (or paired files) to `<result_path>.csv`.
 
         The input is memory-mapped and streamed in record-aligned slabs of
         ~slab_bytes, so inputs far larger than host RAM classify with a flat
-        memory profile.  Returns speed stats (reads, seconds, reads_per_min),
-        mirroring printSpeedStats (CuCLARK_hh.hh:1932-1939)."""
-        self._check_mode(paired_path is not None, extended)
-        slabs = iter_record_slabs(objects_path, slab_bytes)
+        memory profile; paired FASTQ merges through the native chunked
+        merger (file.cc:205-268).  Returns speed stats (reads, seconds,
+        reads_per_min), mirroring printSpeedStats (CuCLARK_hh.hh:1932-1939),
+        and for extended runs the HitStats under "hit_stats"."""
+        paired = paired_path is not None
+        if paired:
+            slabs = iter_merged_slabs(objects_path, paired_path, slab_bytes)
+        else:
+            slabs = iter_record_slabs(objects_path, slab_bytes)
         t0 = time.time()
         n_reads = 0
         out = result_path + ".csv"
         # pull the first slab BEFORE touching the output so a missing/
         # malformed input raises without destroying an existing results file
         first = next(slabs, None)
-        # slab i+1 materializes (mmap page-in) in a worker thread while
-        # slab i classifies; the record scan itself streams inside
-        # _classify_native
+        # slab i+1 materializes (mmap page-in / paired merge) in a worker
+        # thread while slab i classifies; the record scan itself streams
+        # inside _classify_native
         scanned = (
             self._pipelined(itertools.chain([first], slabs), lambda s: s,
                             depth=1)
             if first is not None else iter(())
         )
+        hs = HitStats(self.n_targets) if extended else None
         with open(out, "wb") as f:
-            f.write(self._header())
+            f.write(self._header(extended))
             for slab in scanned:
                 scan = _ScanStream(slab, self.plan.scan_chunk_bytes)
-                for chunk in self._classify_native(slab, scan):
+                for chunk in self._classify_native(slab, scan, paired,
+                                                   extended, hs):
                     f.write(chunk)
                 n_reads += scan.total()
         dt = time.time() - t0
@@ -399,19 +474,18 @@ class Classifier:
             "reads_per_min": int(n_reads / dt * 60.0) if dt > 0 else 0,
             "result": out,
         }
+        if extended:
+            stats["hit_stats"] = hs
+        if extended and verbose:
+            # per-run distinct-targets-hit distribution, as the reference
+            # prints after its extended writer (CuCLARK_hh.hh:2064-2067)
+            print(hs.report(), file=sys.stderr)
         if verbose:
             print(
                 f"Done in {dt:.1f}s ({stats['reads_per_min']} reads/min, "
                 f"{n_reads} reads)"
             )
         return stats
-
-    def _check_mode(self, paired: bool, extended):
-        if paired:
-            raise _not_ported("paired-end classification", "A6")
-        if extended:
-            raise _not_ported(f"extended output (extended={extended!r})",
-                              "A6")
 
     def _probe_cols(self, max_len, stride: int) -> int:
         """Probed-window count for a batch whose longest read is max_len at
@@ -424,34 +498,55 @@ class Classifier:
         w = -(-w // 32) * 32
         return min(w, w_full)
 
-    def _header(self) -> bytes:
-        cols = ["Object_ID", "Gamma", "Assignment", "Score", "Confidence"]
+    def _header(self, extended: bool = False) -> bytes:
+        cols = ["Object_ID"]
+        if extended:
+            cols += self.target_names[1:]
+        cols += ["Gamma", "Assignment", "Score", "Confidence"]
         return (",".join(cols) + "\n").encode()
 
     # ---------------------------------------------------- native host path
-    def _classify_native(self, data, scan: _ScanStream):
+    def _classify_native(self, data, scan: _ScanStream, paired: bool = False,
+                         extended=False, hit_stats: HitStats | None = None):
         """Host side fully in C++ (scan/pack/format), device step in torch.
 
         Length-bucketed: reads of each planning window are grouped by stride
-        tier into dense batches; per-read result scalars scatter back into
-        window order and each window formats with ONE native call, so the
-        CSV is byte-identical to file-order planning."""
+        tier into dense batches; per-read results scatter back into window
+        order and each window formats with ONE native call, so the CSV is
+        byte-identical to file-order planning."""
         k = self.k
         dev = self.device
+        nbn = NBN if paired else 0
+        # extended: one batch per planning window, so a window's extended
+        # columns (a read's sorted labels or dense counts) stay one batch's
+        wb = 1 if extended else self.plan.sort_window_batches
+        # extended columns from the device's sorted label grid (O(windows)
+        # on the device and ~2 B per window fetched) while label+1 fits
+        # u16; dense [R, T+1] counts at 65,535 targets
+        ext_runs = bool(extended) and self.n_targets < 65535
+        ext_mode = "sorted" if ext_runs else extended
+        max_reads = self.plan.max_reads
+        if extended and not ext_runs:
+            max_reads = min(max_reads, max(
+                DENSE_COUNTS_BYTES // (4 * (self.n_targets + 1)), 1))
+        n_targets = self.n_targets if extended else 0
 
         def flat_batches():
             wid = 0
-            for item in self._plan_hybrid_stream(
-                scan, self.plan.sort_window_batches
-            ):
+            for item in self._plan_hybrid_stream(scan, wb, max_reads):
                 if item[0] == "direct":
                     yield ("d",) + item[1:]
                     continue
                 _, w0, arrs, specs = item
                 lens = arrs[4]
-                for idx, stride, r_pad in specs:
-                    pc = self._probe_cols(lens[idx].max(initial=1), stride)
-                    yield ("w", wid, arrs, len(specs), idx, stride, r_pad, pc)
+                pcs = [
+                    self._probe_cols(lens[idx].max(initial=1), stride)
+                    for idx, stride, _ in specs
+                ]
+                max_w = max(pcs)
+                for (idx, stride, r_pad), pc in zip(specs, pcs):
+                    yield ("w", wid, arrs, len(specs), idx, stride, r_pad,
+                           pc, max_w)
                 wid += 1
 
         def to_dev(a: np.ndarray) -> torch.Tensor:
@@ -465,54 +560,87 @@ class Classifier:
                 r_pad = _pad_rows(r1 - r0, r_cap)
                 meta = ("d", (ns, ne, ln), r1 - r0)
             else:
-                _, wid, arrs, n_specs, idx, stride, r_pad, pc = item
+                _, wid, arrs, n_specs, idx, stride, r_pad, pc, max_w = item
                 ss, se = arrs[2][idx], arrs[3][idx]
-                meta = ("w", wid, arrs, n_specs, idx)
+                meta = ("w", wid, arrs, n_specs, idx, max_w)
             with maybe_phase("pack"):
                 words, vwords = native.pack_batch(data, ss, se, stride)
                 words, vwords = _pad_batch(words, vwords, r_pad)
             with maybe_phase("dispatch"):
-                total, ib, b, sb, _ = self.batch_fn(
-                    to_dev(words), to_dev(vwords), probe_cols=pc
+                total, ib, b, sb, extra = self.batch_fn(
+                    to_dev(words), to_dev(vwords), extended=ext_mode,
+                    probe_cols=pc,
                 )
-                return meta, torch.stack([total, ib, b, sb])
+                return meta, torch.stack([total, ib, b, sb]), extra
 
         def fetch(entry):
             # every launch and copy goes to the device's current (default)
-            # stream, so this blocking copy also waits for the batch's kernels
-            meta, res = entry
+            # stream, so these blocking copies also wait for the kernels
+            meta, res, extra = entry
             nb = meta[2] if meta[0] == "d" else len(meta[4])
             with maybe_phase("device_wait"):
-                return meta, res[:, :nb].cpu().numpy()
+                res = res[:, :nb].cpu().numpy()
+                extra = extra[:nb].cpu().numpy() if extended else None
+            if ext_runs:
+                extra = extra.view(np.uint16)
+            return meta, res, extra
+
+        def hits(extra):
+            if hit_stats is not None:
+                if ext_runs:
+                    hit_stats.update_runs(extra)
+                else:
+                    hit_stats.update_counts(extra)
+
+        def fmt(ns, ne, ln, res, extra):
+            with maybe_phase("format"):
+                return native.format_rows(
+                    data, ns, ne, *res, ln - nbn, k, self.names,
+                    counts=extra if extended and not ext_runs else None,
+                    sorted_runs=extra if ext_runs else None,
+                    n_targets=n_targets,
+                )
 
         acc: dict[int, dict] = {}
         entries = self._pipelined(flat_batches(), dispatch)
-        for meta, res in self._pipelined_pool(entries, fetch, workers=2,
-                                              depth=2):
-            total, ib, b, sb = res
+        for meta, res, extra in self._pipelined_pool(entries, fetch,
+                                                     workers=2, depth=2):
             if meta[0] == "d":
                 _, (ns, ne, ln), nb = meta
-                with maybe_phase("format"):
-                    yield native.format_rows(
-                        data, ns, ne, total, ib, b, sb, ln, k, self.names
-                    )
+                if extended:
+                    hits(extra)
+                yield fmt(ns, ne, ln, res, extra)
                 continue
-            _, wid, arrs, n_specs, idx = meta
+            _, wid, arrs, n_specs, idx, max_w = meta
             st = acc.get(wid)
             if st is None:
+                n_win = len(arrs[4])
+                if ext_runs:
+                    ext = np.zeros((n_win, max_w), np.uint16)
+                elif extended:
+                    ext = np.zeros((n_win, self.n_targets + 1), np.int32)
+                else:
+                    ext = None
                 st = acc[wid] = dict(
                     remaining=n_specs,
-                    res=np.zeros((4, len(arrs[4])), np.int32),
+                    res=np.zeros((4, n_win), np.int32),
+                    extra=ext,
                 )
             st["res"][:, idx] = res
+            if ext_runs:
+                # right-align narrower tiers: the pad zeros land BEFORE the
+                # row's own (ascending, zeros-first) labels, keeping every
+                # row ascending for the run expander
+                st["extra"][idx, max_w - extra.shape[1]:] = extra
+            elif extended:
+                st["extra"][idx] = extra
             st["remaining"] -= 1
             if st["remaining"] == 0:
                 del acc[wid]
                 ns, ne, _, _, ln = arrs
-                with maybe_phase("format"):
-                    yield native.format_rows(
-                        data, ns, ne, *st["res"], ln, k, self.names
-                    )
+                if extended:
+                    hits(st["extra"])
+                yield fmt(ns, ne, ln, st["res"], st["extra"])
 
     # --------------------------------------------------- threaded pipelining
     def _pipelined_pool(self, items, fn, workers: int, depth: int):
@@ -591,7 +719,7 @@ class Classifier:
             t.join()
 
     # ----------------------------------------------- length-bucketed planning
-    def _window_specs(self, tiers: np.ndarray):
+    def _window_specs(self, tiers: np.ndarray, max_reads: int):
         """Window-relative batch specs [(idx, stride, r_pad)]: reads grouped
         by stride tier (np.unique ascending; original order preserved within
         each tier, so scattered results reproduce file order exactly)."""
@@ -604,13 +732,14 @@ class Classifier:
                     f"read of length ~{t} exceeds window budget {budget}"
                 )
             idx = np.nonzero(tiers == t)[0]
-            r_cap = max(min(self.plan.max_reads, budget // t), 1)
+            r_cap = max(min(max_reads, budget // t), 1)
             for i in range(0, len(idx), r_cap):
                 chunk = idx[i : i + r_cap]
                 specs.append((chunk, t, _pad_rows(len(chunk), r_cap)))
         return specs
 
-    def _plan_hybrid_stream(self, scan: _ScanStream, window_batches: int):
+    def _plan_hybrid_stream(self, scan: _ScanStream, window_batches: int,
+                            max_reads: int):
         """Adaptive streaming planner.  While the stream is single-tier it
         yields ("direct", r0, r1, stride, r_cap) file-order contiguous
         batches, so dispatch stays scan-paced.  When a candidate batch mixes
@@ -631,7 +760,7 @@ class Classifier:
                     f"read of length ~{first_len} exceeds window budget "
                     f"{budget}"
                 )
-            r_cap = max(min(self.plan.max_reads, budget // t0), 1)
+            r_cap = max(min(max_reads, budget // t0), 1)
             avail = scan.ensure(r0 + r_cap)
             r1 = min(r0 + r_cap, avail)
             tiers = _stride_tiers(scan.arrays(r0, r1)[4])
@@ -657,5 +786,6 @@ class Classifier:
                 cost = int(cum[-1])
                 w1 = take
             tiers = np.concatenate(parts)
-            yield "window", r0, scan.arrays(r0, w1), self._window_specs(tiers)
+            yield ("window", r0, scan.arrays(r0, w1),
+                   self._window_specs(tiers, max_reads))
             r0 = w1

@@ -6,8 +6,9 @@ passes over the whole (memory-mapped) file:
   * classification read scan   — reference CuCLARK_hh.hh:1340-1534
   * target-genome k-mer stream — reference CuCLARK_hh.hh:691-1329 (build)
 
-The paired-end merge (reference file.cc:205-268) is not ported yet
-(ROADMAP A6).
+  * paired-end merge          — reference file.cc:205-268 (native chunked
+                                merger; `_merge_paired_py` is its plain
+                                reference)
 
 Semantics reproduced exactly:
   * FASTA records split on lines starting with '>'; sequence lines are
@@ -278,3 +279,66 @@ def iter_record_slabs(path: str, slab_bytes: int = 1 << 28):
                     want *= 2  # record larger than the slab: widen
                 yield bytes(mm[pos:cut])
                 pos = cut
+
+
+def iter_merged_slabs(path1: str, path2: str, slab_bytes: int = 1 << 28):
+    """Yield merged-FASTA slabs of two paired FASTQ files (file.cc:205-268
+    semantics) in O(slab) memory via the native chunked merger."""
+    import mmap
+
+    from ..utils import native
+
+    with open(path1, "rb") as f1, open(path2, "rb") as f2:
+        for p in (path1, path2):
+            if os.path.getsize(p) == 0:
+                raise ValueError("empty input file")
+        with mmap.mmap(f1.fileno(), 0, access=mmap.ACCESS_READ) as m1, \
+                mmap.mmap(f2.fileno(), 0, access=mmap.ACCESS_READ) as m2:
+            yield from native.merge_paired_stream(m1, m2, slab_bytes)
+
+
+def merge_paired(data1: bytes, data2: bytes) -> bytes:
+    """Interleave two FASTQ files into one in-memory FASTA with mates joined
+    by 'N' (reference file.cc:205-268).  Name = first token of the header
+    split on space, '/', tab or '@'."""
+    if not data1.startswith(b"@") or not data2.startswith(b"@"):
+        raise ValueError("paired-end reads must be FASTQ files")
+    from ..utils import native
+
+    return b"".join(native.merge_paired_stream(data1, data2))
+
+
+def _merge_paired_py(data1: bytes, data2: bytes) -> bytes:
+    """Pure-Python reference merge (slow, whole-buffer); the native chunked
+    merger is byte-parity-tested against it."""
+    lines1 = data1.split(b"\n")
+    lines2 = data2.split(b"\n")
+    out = []
+    n = min(len(lines1), len(lines2))
+    i = 0
+    seps = b" /\t@"
+
+    def first_token(line: bytes) -> bytes:
+        # emulate getElementsFromLine: skip leading separators, take run of
+        # non-separator chars
+        j = 0
+        while j < len(line) and line[j] in seps:
+            j += 1
+        e = j
+        while e < len(line) and line[e] not in seps:
+            e += 1
+        return line[j:e]
+
+    while i + 1 < n:
+        l1, l2 = lines1[i], lines2[i]
+        if l1[:1] == b"@" and l2[:1] == b"@":
+            t1 = first_token(l1)
+            t2 = first_token(l2)
+            if t1 != t2:
+                raise ValueError("read id does not match between files")
+            out.append(b">" + t1 + b"\n")
+            out.append(lines1[i + 1] + b"N" + lines2[i + 1] + b"\n")
+            i += 4
+        else:
+            i += 1
+    return b"".join(out)

@@ -1,7 +1,8 @@
 """Device classification step of the resident path.
 
 windows-from-packed-words + Jellyfish canonicalization (K1) -> radix-table
-probe (K2) -> per-read top-2 (K3), reproducing exactly the k-mer set the
+probe (K2) -> per-read scoring (K3 top-2; extended output: K4 sorted label
+grid + top-2, or K5 dense counts + top-2), reproducing exactly the k-mer set the
 reference counts (all length-k windows of valid chars within a read,
 CuClarkDB.cu:1042-1117).  On CUDA tensors each step is a hand-written
 kernel (ops/kernels/classify.cu); on CPU tensors each runs its plain-PyTorch
@@ -91,20 +92,33 @@ def _revcomp(v, k: int):
     return bits.lsr(~x, 64 - 2 * k)
 
 
+def score_from_labels(lab, *, n_targets: int, extended=False):
+    """Per-read scoring of per-window labels lab [R, W] int32 (label+1,
+    0 = miss): (total, ibest, best, sbest, extra), the scalars [R] int32.
+
+    extended=False -> K3 top-2, extra an empty [R, 0] placeholder;
+    "sorted" -> K4: extra is the sorted label grid [R, W] (int16 carrying
+    u16; labels must be below 65,536), which the native formatter expands
+    to the per-target columns; True -> K5: extra is the dense [R, T+1]
+    count matrix."""
+    if not extended:
+        total, ib, b, isb, sb = score.top2_from_labels(lab)
+        extra = torch.zeros((lab.shape[0], 0), dtype=torch.int32,
+                            device=lab.device)
+    elif extended == "sorted":
+        extra, total, ib, b, isb, sb = score.sort_top2(lab)
+    else:
+        extra, total, ib, b, isb, sb = score.counts_top2(lab, n_targets)
+    return total, ib, b, sb, extra
+
+
 def classify_batch(
     table: radix_table.DeviceTable, words, vwords, *, k: int, n_targets: int,
     extended=False, probe_cols: int | None = None,
 ):
     """Full single-device batch step on packed rows: returns (total, ibest,
-    best, sbest, counts[R, 0]), each [R] int32 (counts an empty placeholder,
-    as in the JAX package's non-extended path).  Runs on the device of
+    best, sbest, extra) as score_from_labels does.  Runs on the device of
     `words`, which must be the table's."""
-    del n_targets  # only extended mode's dense counts need it
-    if extended:
-        raise NotImplementedError(
-            "extended scoring (dense counts / sorted label grid) is not "
-            "ported yet: ROADMAP A6 and kernel B4"
-        )
     with torch.inference_mode():
         q = window_canonicals(words, vwords, k, probe_cols)
         R, W = q.shape
@@ -113,6 +127,4 @@ def classify_batch(
         # and a valid canonical value is never EMPTY (see window_canonicals),
         # so the miss mask is recomputed from q
         lab = torch.where(q.view(-1) != bits.EMPTY, lab, 0).view(R, W)
-        total, ib, b, isb, sb = score.top2_from_labels(lab)
-        return total, ib, b, sb, torch.zeros((R, 0), dtype=torch.int32,
-                                             device=q.device)
+        return score_from_labels(lab, n_targets=n_targets, extended=extended)

@@ -1,6 +1,7 @@
-"""Build, load and launch the hand-written CUDA kernels of the classify path.
+"""Build, load and launch the port's hand-written CUDA kernels.
 
-`classify.cu` is compiled by `nvcc` for `sm_90a` into a shared library with
+`classify.cu` (K1-K5, the classify path) and `aggregate.cu` (K6, the DB
+build) are each compiled by `nvcc` for `sm_90a` into a shared library with
 a plain C interface at first use (utils/build.py) and bound with ctypes:
 pointers come from `tensor.data_ptr()` and the stream from torch's current
 stream, so each kernel runs in order with the torch work around it.  Nothing
@@ -12,8 +13,9 @@ outputs with `torch.empty`, launches, raises if the launch was refused, and
 adds one to its entry of `LAUNCHES`, which shows that a run went through the
 kernel.  Nothing falls back to the plain-PyTorch twins: those live beside
 the public functions (device_pipeline.window_canonicals_plain,
-radix_table.probe_plain, score.top2_from_labels_plain) and run only for CPU
-tensors.
+radix_table.probe_plain, score.top2_from_labels_plain, score.sort_top2_plain,
+score.counts_from_hits_plain + read_results_plain,
+db.device_build.aggregate_device_plain) and run only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -21,18 +23,24 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 from ...utils.build import build_library
 from ..radix_table import STASH_CAP
 
-SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "classify.cu")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SOURCES = {
+    "classify": os.path.join(_HERE, "classify.cu"),
+    "aggregate": os.path.join(_HERE, "aggregate.cu"),
+}
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 
-LAUNCHES = {"window_canonicals": 0, "probe": 0, "top2": 0}
+LAUNCHES = {"window_canonicals": 0, "probe": 0, "top2": 0, "sort_top2": 0,
+            "counts_top2": 0, "aggregate": 0}
 _count_lock = threading.Lock()
-_lib = None
+_libs: dict = {}
 _load_lock = threading.Lock()
 
 
@@ -58,34 +66,56 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _compile_command(out: str) -> list[str]:
-    return [
-        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-o", out, SOURCE,
-    ]
+def _build(name: str) -> str:
+    src = SOURCES[name]
 
-
-def load():
-    """Build (once per source hash) and load the kernel library."""
-    global _lib
-    with _load_lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(build_library("classify_kernels", [SOURCE],
-                                        _compile_command))
-        p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.clark_cuda_error_string.restype = ctypes.c_char_p
-        lib.clark_cuda_error_string.argtypes = [i32]
-        lib.launch_window_canonicals.restype = i32
-        lib.launch_window_canonicals.argtypes = [
-            p, p, p, i64, i32, i32, i32, i32, p,
+    def command(out: str) -> list[str]:
+        return [
+            _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", "-o", out, src,
         ]
-        lib.launch_probe.restype = i32
-        lib.launch_probe.argtypes = [p, p, p, p, p, i64, i32, i32, i32, p]
-        lib.launch_top2.restype = i32
-        lib.launch_top2.argtypes = [p, i64, i64, p, p, p, p, p, p]
-        _lib = lib
-        return lib
+
+    return build_library(f"{name}_kernels", [src], command)
+
+
+def _bind(name: str, lib):
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.clark_cuda_error_string.restype = ctypes.c_char_p
+    lib.clark_cuda_error_string.argtypes = [i32]
+    sigs = {
+        "classify": {
+            "launch_window_canonicals": [p, p, p, i64, i32, i32, i32, i32, p],
+            "launch_probe": [p, p, p, p, p, i64, i32, i32, i32, p],
+            "launch_top2": [p, i64, i64, p, p, p, p, p, p],
+            "launch_sort_top2": [p, i64, i64, p, p, p, p, p, p, p],
+            "launch_counts_top2": [p, i64, i64, i32, p, p, p, p, p, p, p],
+        },
+        "aggregate": {
+            "launch_group_starts": [p, p, i64, p],
+            "launch_group_mult": [p, p, p, p, p, i64, p, p],
+            "launch_group_rows": [p, p, p, p, p, i64, i64, i32,
+                                  p, p, p, p, p, p],
+        },
+    }[name]
+    for fn, argtypes in sigs.items():
+        getattr(lib, fn).restype = i32
+        getattr(lib, fn).argtypes = argtypes
+    return lib
+
+
+def load(name: str = "classify"):
+    """Build (once per source hash) and load one kernel library."""
+    with _load_lock:
+        if name not in _libs:
+            _libs[name] = _bind(name, ctypes.CDLL(_build(name)))
+        return _libs[name]
+
+
+def load_all():
+    """Build every kernel library, one `nvcc` per source, all at once."""
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as ex:
+        list(ex.map(_build, SOURCES))
+    return [load(name) for name in SOURCES]
 
 
 def _check(name: str, t: torch.Tensor, dtype, ndim: int, device):
@@ -99,14 +129,15 @@ def _check(name: str, t: torch.Tensor, dtype, ndim: int, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(lib, fn, name: str, device, *args):
+def _launch(lib, fn, name: str, device, *args, count: bool = True):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*args, stream)
     if rc != 0:
         msg = lib.clark_cuda_error_string(rc).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg}")
-    _counted(name)
+    if count:
+        _counted(name)
 
 
 def window_canonicals(words: torch.Tensor, vwords: torch.Tensor, k: int,
@@ -171,3 +202,83 @@ def top2(lab: torch.Tensor):
             lab.data_ptr(), R, W, total.data_ptr(), ibest.data_ptr(),
             best.data_ptr(), isbest.data_ptr(), sbest.data_ptr())
     return total, ibest, best, isbest, sbest
+
+
+def sort_top2(lab: torch.Tensor):
+    """K4: (sorted, total, ibest, best, isbest, sbest): sorted [R, W] int16
+    holds each row's labels ascending (zeros first) as u16 bit patterns;
+    the scalars are K3's.  Labels must lie in [0, 65,536)."""
+    dev = lab.device
+    _check("lab", lab, torch.int32, 2, dev)
+    R, W = lab.shape
+    lib = load()
+    srt = torch.empty((R, W), dtype=torch.int16, device=dev)
+    outs = torch.empty((5, R), dtype=torch.int32, device=dev)
+    total, ibest, best, isbest, sbest = outs
+    _launch(lib, lib.launch_sort_top2, "sort_top2", dev,
+            lab.data_ptr(), R, W, srt.data_ptr(), total.data_ptr(),
+            ibest.data_ptr(), best.data_ptr(), isbest.data_ptr(),
+            sbest.data_ptr())
+    return srt, total, ibest, best, isbest, sbest
+
+
+def counts_top2(lab: torch.Tensor, n_targets: int):
+    """K5: (counts, total, ibest, best, isbest, sbest): counts [R, T+1]
+    int32 of the per-window labels lab [R, W] (label+1 in [0, T]; column 0
+    collects misses) and read_results' top two over columns 1..T."""
+    dev = lab.device
+    _check("lab", lab, torch.int32, 2, dev)
+    if not 1 <= n_targets < (1 << 31) - 1:
+        raise ValueError(f"bad target count {n_targets}")
+    R, W = lab.shape
+    lib = load()
+    counts = torch.empty((R, n_targets + 1), dtype=torch.int32, device=dev)
+    outs = torch.empty((5, R), dtype=torch.int32, device=dev)
+    total, ibest, best, isbest, sbest = outs
+    _launch(lib, lib.launch_counts_top2, "counts_top2", dev,
+            lab.data_ptr(), R, W, n_targets + 1, counts.data_ptr(),
+            total.data_ptr(), ibest.data_ptr(), best.data_ptr(),
+            isbest.data_ptr(), sbest.data_ptr())
+    return counts, total, ibest, best, isbest, sbest
+
+
+def aggregate(keys: torch.Tensor, seq: torch.Tensor, label: torch.Tensor,
+              pg: torch.Tensor, lelement: bool):
+    """K6: the segmented pass of the DB-build aggregate over keys [n] int64
+    (canonical ^ 2^63, sorted ascending as int64), seq [n] int64 (the
+    stable sort's permutation), label [n] int32 (stream order, in
+    [0, len(pg))) and pg [L] int32 (prefix group of each label).  Returns
+    one row per group: (canon [G] int64 bits, L0 [G] int32, mult [G] int32,
+    count [G] int64, first_seq [G] int64).  Synchronises once, for G."""
+    dev = keys.device
+    _check("keys", keys, torch.int64, 1, dev)
+    _check("seq", seq, torch.int64, 1, dev)
+    _check("label", label, torch.int32, 1, dev)
+    _check("pg", pg, torch.int32, 1, dev)
+    n = keys.shape[0]
+    if seq.shape[0] != n or label.shape[0] != n:
+        raise ValueError("keys, seq and label must have one length")
+    lib = load("aggregate")
+    flags = torch.empty(n, dtype=torch.int32, device=dev)
+    # the segmented pass is three launches; they count as one K6 launch,
+    # at the last
+    _launch(lib, lib.launch_group_starts, "aggregate", dev,
+            keys.data_ptr(), flags.data_ptr(), n, count=False)
+    offs = torch.cumsum(flags, 0, dtype=torch.int64)
+    starts = torch.nonzero(flags).view(-1)  # synchronises: G is known
+    ng = starts.shape[0]
+    dsum = torch.zeros(ng, dtype=torch.int64, device=dev)
+    _launch(lib, lib.launch_group_mult, "aggregate", dev,
+            seq.data_ptr(), label.data_ptr(), pg.data_ptr(), offs.data_ptr(),
+            starts.data_ptr(), n, dsum.data_ptr(), count=False)
+    canon = torch.empty(ng, dtype=torch.int64, device=dev)
+    l0 = torch.empty(ng, dtype=torch.int32, device=dev)
+    mult = torch.empty(ng, dtype=torch.int32, device=dev)
+    count = torch.empty(ng, dtype=torch.int64, device=dev)
+    first = torch.empty(ng, dtype=torch.int64, device=dev)
+    _launch(lib, lib.launch_group_rows, "aggregate", dev,
+            keys.data_ptr(), seq.data_ptr(), label.data_ptr(),
+            starts.data_ptr(), dsum.data_ptr(), ng, n, 1 if lelement else 0,
+            canon.data_ptr(), l0.data_ptr(), mult.data_ptr(),
+            count.data_ptr(), first.data_ptr())
+    return canon, l0, mult, count, first

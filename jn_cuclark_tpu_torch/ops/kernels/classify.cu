@@ -9,6 +9,10 @@
 //                         with an all-EMPTY stash it computes exactly what
 //                         exp_probe_pallas computes
 //   K3 top2               score.py:41 top2_from_labels / :57 top2_from_sorted
+//   K4 sort_top2          device_pipeline.py:155 score_from_labels(extended=
+//                         "sorted"): K3 plus each read's sorted label row
+//   K5 counts_top2        score.py:17 counts_from_hits + :85 read_results
+//                         (device_pipeline.py:159 score_from_labels(True))
 //
 // u64 values arrive as int64 bit patterns and u32 values as int32 bit
 // patterns; the kernels read them as unsigned.  Each launcher is a plain C
@@ -17,7 +21,8 @@
 // refused launch surfaces at once.
 //
 // These are first, simple kernels: one thread per window, one warp per
-// query, one block per read.  Making them fast is later work.
+// query, one block per read.  Making them fast is later work.  The DB-build
+// aggregate (K6) lives in aggregate.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -125,7 +130,7 @@ __global__ void probe_kernel(const u32* __restrict__ slots,
   if (lane == 0) out[qi] = best;
 }
 
-// ---------------------------------------------------------------- K3
+// ---------------------------------------------------------------- K3, K4
 // Per read: the count of each nonzero label, then the top two labels under
 // (count desc, label asc) -- the reference's resultKernel order
 // (CuClarkDB.cu:1361-1411).  One block per read.  A row may hold millions
@@ -134,8 +139,17 @@ __global__ void probe_kernel(const u32* __restrict__ slots,
 // shared-memory chunks of K3_HIST labels (one pass over the row per chunk)
 // and merges each chunk's top two into a running top two.  Bound by the
 // row reads (once, plus once per chunk) and the shared-memory atomics.
+//
+// K4 (SORTED) also writes the row's labels sorted ascending, zeros first,
+// as u16 -- a counting sort from the same histograms: W - total zeros,
+// then each chunk's labels at offsets from a block scan of the chunk's
+// histogram.  Each output position finds its label by a binary search of
+// the scanned histogram, so the writes are coalesced whatever the run
+// lengths.  It adds one row write (2 B per window) to K3's traffic.
 #define K3_THREADS 128
+#define K3_WARPS (K3_THREADS / 32)
 #define K3_HIST 8192
+#define K4_SPAN (K3_HIST / K3_THREADS)  // histogram entries scanned a thread
 
 // (count desc, label asc) as one u64: larger key ranks higher; 0 = none
 __device__ __forceinline__ u64 rank_key(int count, int label) {
@@ -150,6 +164,7 @@ __device__ __forceinline__ void merge2(u64& a1, u64& a2, u64 b1, u64 b2) {
   a2 = n2;
 }
 
+// Block-wide top two of each thread's (a1, a2), valid in thread 0.
 __device__ __forceinline__ void block_merge2(u64& a1, u64& a2, u64* s1,
                                              u64* s2) {
   for (int o = 16; o; o >>= 1) {
@@ -164,20 +179,33 @@ __device__ __forceinline__ void block_merge2(u64& a1, u64& a2, u64* s1,
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int w = 1; w < K3_THREADS / 32; ++w) merge2(a1, a2, s1[w], s2[w]);
+    for (int w = 1; w < K3_WARPS; ++w) merge2(a1, a2, s1[w], s2[w]);
   }
   __syncthreads();
 }
 
+// Writes the top two (keys from rank_key) as the five result scalars.
+__device__ __forceinline__ void store_top2(long long r, int cnt, u64 top1,
+                                           u64 top2, int* total, int* ibest,
+                                           int* best, int* isbest,
+                                           int* sbest) {
+  total[r] = cnt;
+  best[r] = (int)(top1 >> 32);
+  ibest[r] = top1 ? (int)(0xFFFFFFFFu - (u32)top1) : 0;
+  sbest[r] = (int)(top2 >> 32);
+  isbest[r] = top2 ? (int)(0xFFFFFFFFu - (u32)top2) : 0;
+}
+
+template <bool SORTED>
 __global__ void __launch_bounds__(K3_THREADS)
 top2_kernel(const int* __restrict__ lab, long long W, int* __restrict__ total,
             int* __restrict__ ibest, int* __restrict__ best,
-            int* __restrict__ isbest, int* __restrict__ sbest) {
+            int* __restrict__ isbest, int* __restrict__ sbest,
+            unsigned short* __restrict__ sorted) {
   __shared__ int hist[K3_HIST];
-  __shared__ u64 s1[K3_THREADS / 32], s2[K3_THREADS / 32];
-  __shared__ int s_cnt[K3_THREADS / 32], s_lo[K3_THREADS / 32],
-      s_hi[K3_THREADS / 32];
-  __shared__ int row_lo, row_hi;
+  __shared__ u64 s1[K3_WARPS], s2[K3_WARPS];
+  __shared__ int s_cnt[K3_WARPS], s_lo[K3_WARPS], s_hi[K3_WARPS];
+  __shared__ int row_lo, row_hi, row_cnt;
   const int* row = lab + (long long)blockIdx.x * W;
   int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
@@ -202,17 +230,27 @@ top2_kernel(const int* __restrict__ lab, long long W, int* __restrict__ total,
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int w = 1; w < K3_THREADS / 32; ++w) {
+    for (int w = 1; w < K3_WARPS; ++w) {
       cnt += s_cnt[w];
       lo = min(lo, s_lo[w]);
       hi = max(hi, s_hi[w]);
     }
     row_lo = lo;
     row_hi = hi;
+    row_cnt = cnt;
   }
   __syncthreads();
   lo = row_lo;
   hi = row_hi;
+  cnt = row_cnt;
+
+  unsigned short* srow = nullptr;
+  long long pos = 0;  // next sorted position (uniform across the block)
+  if (SORTED) {
+    srow = sorted + (long long)blockIdx.x * W;
+    pos = W - cnt;
+    for (long long j = threadIdx.x; j < pos; j += K3_THREADS) srow[j] = 0;
+  }
 
   u64 top1 = 0, top2 = 0;  // running result, meaningful in thread 0
   for (long long base = lo; base <= hi; base += K3_HIST) {
@@ -241,14 +279,95 @@ top2_kernel(const int* __restrict__ lab, long long W, int* __restrict__ total,
     }
     block_merge2(a1, a2, s1, s2);  // ends with __syncthreads: hist reusable
     if (threadIdx.x == 0) merge2(top1, top2, a1, a2);
+    if (SORTED) {
+      // inclusive scan of hist[0, span) in place: thread t owns the
+      // K4_SPAN entries from t * K4_SPAN; s_cnt holds the warp totals
+      int j0 = threadIdx.x * K4_SPAN, j1 = min(j0 + K4_SPAN, span);
+      int own = 0;
+      for (int j = j0; j < j1; ++j) own += hist[j];
+      int incl = own;
+      for (int o = 1; o < 32; o <<= 1) {
+        int v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      if (lane == 31) s_cnt[warp] = incl;
+      __syncthreads();
+      int run = incl - own;
+      for (int w = 0; w < warp; ++w) run += s_cnt[w];
+      for (int j = j0; j < j1; ++j) {
+        run += hist[j];
+        hist[j] = run;
+      }
+      __syncthreads();
+      int in_chunk = hist[span - 1];
+      for (int p = threadIdx.x; p < in_chunk; p += K3_THREADS) {
+        int a = 0, b = span - 1;  // first j with hist[j] > p
+        while (a < b) {
+          int m = (a + b) >> 1;
+          if (hist[m] > p) b = m;
+          else a = m + 1;
+        }
+        srow[pos + p] = (unsigned short)(base + a);
+      }
+      pos += in_chunk;
+      __syncthreads();  // hist and s_cnt are rewritten by the next chunk
+    }
   }
+  if (threadIdx.x == 0)
+    store_top2(blockIdx.x, cnt, top1, top2, total, ibest, best, isbest,
+               sbest);
+}
+
+// ---------------------------------------------------------------- K5
+// Dense per-read counts [R, T+1] (column 0 collects misses) and the top
+// two over columns 1..T with read_results' order (count desc, lowest
+// target index first; 0 = NA).  One block per read: the block zeroes its
+// row of the count matrix, adds each window with a global atomic, then
+// reduces the row.  At T = 65,535 a row is 256 KiB, too large for shared
+// memory, so it stays in device memory; bound by those row writes and
+// reads (the count matrix is the output the host fetches anyway).
+// Labels outside [0, T] are dropped, as segment_sum drops them.
+__global__ void __launch_bounds__(K3_THREADS)
+counts_top2_kernel(const int* __restrict__ lab, long long W, int T1,
+                   int* __restrict__ counts, int* __restrict__ total,
+                   int* __restrict__ ibest, int* __restrict__ best,
+                   int* __restrict__ isbest, int* __restrict__ sbest) {
+  __shared__ u64 s1[K3_WARPS], s2[K3_WARPS];
+  __shared__ int s_tot[K3_WARPS];
+  const int* row = lab + (long long)blockIdx.x * W;
+  int* crow = counts + (long long)blockIdx.x * T1;
+  int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  for (int j = threadIdx.x; j < T1; j += K3_THREADS) crow[j] = 0;
+  __syncthreads();
+  for (long long j = threadIdx.x; j < W; j += K3_THREADS) {
+    int v = row[j];
+    if ((unsigned)v < (unsigned)T1) atomicAdd(&crow[v], 1);
+  }
+  __syncthreads();  // also orders the block's global atomics before reads
+
+  // columns ascend within each thread: strict '>' keeps the lower index
+  int tot = 0;
+  u64 a1 = 0, a2 = 0;
+  for (int j = 1 + threadIdx.x; j < T1; j += K3_THREADS) {
+    int c = crow[j];
+    tot += c;
+    if (c > 0) {
+      u64 key = rank_key(c, j);
+      if (key > a1) {
+        a2 = a1;
+        a1 = key;
+      } else if (key > a2) {
+        a2 = key;
+      }
+    }
+  }
+  for (int o = 16; o; o >>= 1) tot += __shfl_xor_sync(0xffffffffu, tot, o);
+  if (lane == 0) s_tot[warp] = tot;
+  block_merge2(a1, a2, s1, s2);  // its __syncthreads also publishes s_tot
   if (threadIdx.x == 0) {
-    long long r = blockIdx.x;
-    total[r] = cnt;
-    best[r] = (int)(top1 >> 32);
-    ibest[r] = top1 ? (int)(0xFFFFFFFFu - (u32)top1) : 0;
-    sbest[r] = (int)(top2 >> 32);
-    isbest[r] = top2 ? (int)(0xFFFFFFFFu - (u32)top2) : 0;
+    for (int w = 1; w < K3_WARPS; ++w) tot += s_tot[w];
+    store_top2(blockIdx.x, tot, a1, a2, total, ibest, best, isbest, sbest);
   }
 }
 
@@ -295,9 +414,31 @@ int launch_top2(const void* lab, long long R, long long W, void* total,
                 void* stream) {
   if (R == 0) return 0;
   if (R > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
-  top2_kernel<<<(unsigned)R, K3_THREADS, 0, (cudaStream_t)stream>>>(
+  top2_kernel<false><<<(unsigned)R, K3_THREADS, 0, (cudaStream_t)stream>>>(
       (const int*)lab, W, (int*)total, (int*)ibest, (int*)best, (int*)isbest,
-      (int*)sbest);
+      (int*)sbest, nullptr);
+  return (int)cudaGetLastError();
+}
+
+int launch_sort_top2(const void* lab, long long R, long long W, void* sorted,
+                     void* total, void* ibest, void* best, void* isbest,
+                     void* sbest, void* stream) {
+  if (R == 0) return 0;
+  if (R > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
+  top2_kernel<true><<<(unsigned)R, K3_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)lab, W, (int*)total, (int*)ibest, (int*)best, (int*)isbest,
+      (int*)sbest, (unsigned short*)sorted);
+  return (int)cudaGetLastError();
+}
+
+int launch_counts_top2(const void* lab, long long R, long long W, int T1,
+                       void* counts, void* total, void* ibest, void* best,
+                       void* isbest, void* sbest, void* stream) {
+  if (R == 0) return 0;
+  if (R > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
+  counts_top2_kernel<<<(unsigned)R, K3_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)lab, W, T1, (int*)counts, (int*)total, (int*)ibest,
+      (int*)best, (int*)isbest, (int*)sbest);
   return (int)cudaGetLastError();
 }
 

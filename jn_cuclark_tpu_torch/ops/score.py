@@ -7,10 +7,16 @@ with strict '>' updates, which makes (best, second best) exactly the top-2
 under the ordering (count desc, target index asc).  `indexBest` is the target
 index + 1 so 0 means "NA" (CuClarkDB.cu:1390).
 
-`top2_from_labels` runs the CUDA kernel K3 (ops/kernels/classify.cu) on CUDA
-tensors and its plain twin `top2_from_labels_plain` on CPU tensors.  The
-dense-count scoring of extended mode (`counts_from_hits`, `read_results`)
-waits for ROADMAP B4.
+Three forms, each a CUDA kernel (ops/kernels/classify.cu) on CUDA tensors
+and its plain twin on CPU tensors:
+
+  top2_from_labels  K3  per-window labels -> the five top-2 scalars
+  sort_top2         K4  the same, plus each read's labels sorted ascending
+                        as a u16 grid (extended output below 65,535
+                        targets: the native formatter expands its runs)
+  counts_top2       K5  dense per-read counts [R, T+1] and the top-2 over
+                        them (extended output at 65,535 targets);
+                        twins counts_from_hits_plain + read_results_plain
 """
 
 from __future__ import annotations
@@ -25,9 +31,86 @@ def top2_from_labels(lab: torch.Tensor):
         from . import kernels
 
         return kernels.top2(lab)
-    if lab.device.type != "cpu":
-        raise ValueError(f"unsupported device {lab.device}")
+    _check_device(lab)
     return top2_from_labels_plain(lab)
+
+
+def _check_device(t: torch.Tensor):
+    if t.device.type != "cpu":
+        raise ValueError(f"unsupported device {t.device}")
+
+
+def sort_top2(lab: torch.Tensor):
+    """(sorted, total, index_best, best, index_sbest, s_best): sorted is
+    each read's labels ascending (zeros first) as an int16 grid [R, W]
+    carrying u16 bit patterns; labels must be below 65,536.  The scalars
+    are top2_from_labels'."""
+    if lab.device.type == "cuda":
+        from . import kernels
+
+        return kernels.sort_top2(lab)
+    _check_device(lab)
+    return sort_top2_plain(lab)
+
+
+def sort_top2_plain(lab: torch.Tensor):
+    """Plain-PyTorch twin of kernel K4: the JAX package's "sorted" form
+    (lax.sort along the window axis, then top2_from_sorted)."""
+    s = torch.sort(lab, dim=1).values
+    return (u16_bits(s),) + top2_from_sorted(s)
+
+
+def u16_bits(x: torch.Tensor) -> torch.Tensor:
+    """int32 values in [0, 65536) -> int16 tensor of their u16 bit
+    patterns (torch has few uint16 ops; the host views it as uint16)."""
+    return torch.where(x >= 32768, x - 65536, x).to(torch.int16)
+
+
+def counts_top2(lab: torch.Tensor, n_targets: int):
+    """(counts, total, index_best, best, index_sbest, s_best): counts
+    [R, n_targets+1] int32 of each read's per-window label+1 values
+    (column 0 collects misses), then read_results over it."""
+    if lab.device.type == "cuda":
+        from . import kernels
+
+        return kernels.counts_top2(lab, n_targets)
+    _check_device(lab)
+    R, W = lab.shape
+    rid = torch.arange(R, dtype=torch.int64, device=lab.device)
+    counts = counts_from_hits_plain(
+        lab.reshape(-1), rid.repeat_interleave(W), R, n_targets
+    )
+    return (counts,) + read_results_plain(counts)
+
+
+def counts_from_hits_plain(labels1: torch.Tensor, read_id: torch.Tensor,
+                           n_reads: int, n_targets: int) -> torch.Tensor:
+    """Dense per-read count matrix [n_reads, n_targets+1] int32 from
+    per-query (label+1) values (0 = miss, accumulated in column 0): the
+    JAX package's counts_from_hits as one bincount."""
+    ids = read_id.to(torch.int64) * (n_targets + 1) + labels1.to(torch.int64)
+    flat = torch.bincount(ids, minlength=n_reads * (n_targets + 1))
+    return flat.to(torch.int32).reshape(n_reads, n_targets + 1)
+
+
+def read_results_plain(counts: torch.Tensor):
+    """counts[:, 1:] -> (total, index_best, best, index_sbest, s_best),
+    each [R] int32.  Ties on count resolve to the LOWEST target index
+    (torch.argmax returns the first maximum); index 0 means NA."""
+    t = counts[:, 1:]
+    total = t.sum(dim=1, dtype=torch.int32)
+    tidx = torch.arange(t.shape[1], device=t.device)
+    best = t.amax(dim=1)
+    ibest = t.argmax(dim=1)
+    masked = torch.where(tidx[None, :] == ibest[:, None], -1, t)
+    sbest = masked.amax(dim=1)
+    isbest = masked.argmax(dim=1)
+    sbest = torch.clamp(sbest, min=0)
+    zero = torch.zeros_like(ibest)
+    index_best = torch.where(best > 0, ibest + 1, zero).to(torch.int32)
+    index_sbest = torch.where(sbest > 0, isbest + 1, zero).to(torch.int32)
+    return (total, index_best, best.to(torch.int32), index_sbest,
+            sbest.to(torch.int32))
 
 
 def top2_from_labels_plain(lab: torch.Tensor):

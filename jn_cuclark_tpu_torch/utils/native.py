@@ -1,7 +1,8 @@
 """ctypes bindings for the native C++ host runtime (`native/clark_native.cpp`).
 
-The runtime (FASTA/FASTQ record scan, 2-bit packing, `%g` CSV formatting,
-k-mer extraction and DB serialization) is compiled from the repository's
+The runtime (FASTA/FASTQ record scan, the paired-end merge, 2-bit packing,
+`%g` CSV formatting, k-mer extraction, the host DB-build aggregate and DB
+serialization) is compiled from the repository's
 source at first use with `g++ -O3 -fPIC -fopenmp -shared` (utils/build.py);
 the committed `native/libclark_native.so` is not loaded, because it was
 built with `-march=native` on another host.  The port has no pure-numpy
@@ -59,6 +60,45 @@ def _load():
             _U8P, _I64P, _I64P, _I32P, _I32P, _I32P, _I32P, _I64P,
             ctypes.c_int64, ctypes.c_int32, ctypes.c_char_p, _I64P,
             ctypes.c_char_p, ctypes.c_int64,
+        ]
+        lib.format_rows_extended.restype = ctypes.c_int64
+        lib.format_rows_extended.argtypes = [
+            _U8P, _I64P, _I64P, _I32P, _I32P, _I32P, _I32P, _I32P, _I64P,
+            ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_char_p,
+            _I64P, ctypes.c_char_p, ctypes.c_int64,
+        ]
+        lib.format_rows_extended_sorted.restype = ctypes.c_int64
+        lib.format_rows_extended_sorted.argtypes = [
+            _U8P, _I64P, _I64P, _U16P, ctypes.c_int64, _I32P, _I32P, _I32P,
+            _I32P, _I64P, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_char_p, _I64P, ctypes.c_char_p, ctypes.c_int64,
+        ]
+        lib.merge_paired_chunk.restype = ctypes.c_int64
+        lib.merge_paired_chunk.argtypes = [
+            _U8P, ctypes.c_int64, _U8P, ctypes.c_int64, _I64P, _I64P,
+            _U8P, ctypes.c_int64, _I32P,
+        ]
+        lib.saturating_group_sum.restype = None
+        lib.saturating_group_sum.argtypes = [_I64P, ctypes.c_int64, _I64P,
+                                             _I64P]
+        lib.aggregate_occurrences.restype = ctypes.c_int64
+        lib.aggregate_occurrences.argtypes = [
+            _U64P, _I32P, ctypes.c_int64, _I32P, ctypes.c_int32,
+            _U64P, _I32P, _I32P, _I64P, _I64P,
+        ]
+        lib.occ_partition_count.restype = None
+        lib.occ_partition_count.argtypes = [
+            _U64P, ctypes.c_int64, ctypes.c_int32, _I64P,
+        ]
+        lib.occ_partition_scatter.restype = None
+        lib.occ_partition_scatter.argtypes = [
+            _U64P, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
+            ctypes.c_int32, _I64P, ctypes.c_void_p,
+        ]
+        lib.aggregate_kv_range.restype = ctypes.c_int64
+        lib.aggregate_kv_range.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, _I32P, ctypes.c_int32,
+            _U64P, _I32P, _I32P, _I64P, _I64P,
         ]
         lib.extract_canonical.restype = ctypes.c_int64
         lib.extract_canonical.argtypes = [
@@ -197,10 +237,16 @@ class NamesBuffer:
 
 def format_rows(
     data: bytes, name_start, name_end, total, ibest, best, sbest, norm,
-    k: int, names: NamesBuffer,
+    k: int, names: NamesBuffer, counts=None, n_targets: int = 0,
+    sorted_runs=None,
 ) -> bytes:
-    """CSV body rows `name,Gamma,Assignment,Score,Confidence` with C `%g`
-    (the reference's non-extended writer, CuCLARK_hh.hh:2042-2051)."""
+    """CSV body rows with C `%g` (the reference's writers,
+    CuCLARK_hh.hh:2042-2051 and, extended, 2110-2118).
+
+    Extended rows carry one count column per target, from either the dense
+    `counts` [nreads, n_targets+1] int32 or `sorted_runs` [nreads, width]
+    uint16: each read's per-window label+1 row sorted ascending (zeros
+    first), whose runs expand to the per-target counts."""
     lib = _load()
     arr, dp = _u8(data)
     nreads = len(total)
@@ -211,16 +257,79 @@ def format_rows(
     bb = np.ascontiguousarray(best, np.int32)
     sb = np.ascontiguousarray(sbest, np.int32)
     nm = np.ascontiguousarray(norm, np.int64)
-    cap = nreads * 192 + 1024
-    out = ctypes.create_string_buffer(cap)
-    w = lib.format_rows(
-        dp, _p(ns, _I64P), _p(ne, _I64P), _p(tt, _I32P), _p(ib, _I32P),
-        _p(bb, _I32P), _p(sb, _I32P), _p(nm, _I64P), nreads, k,
-        names.buf, _p(names.off, _I64P), out, cap,
-    )
+    names_args = (names.buf, _p(names.off, _I64P))
+    if sorted_runs is not None:
+        sl = np.ascontiguousarray(sorted_runs, np.uint16)
+        width = sl.shape[1] if sl.ndim == 2 else 0
+        cap = nreads * (192 + 12 * n_targets) + 1024
+        out = ctypes.create_string_buffer(cap)
+        w = lib.format_rows_extended_sorted(
+            dp, _p(ns, _I64P), _p(ne, _I64P), _p(sl, _U16P), width,
+            _p(tt, _I32P), _p(ib, _I32P), _p(bb, _I32P), _p(sb, _I32P),
+            _p(nm, _I64P), nreads, n_targets, k, *names_args, out, cap,
+        )
+    elif counts is not None:
+        cc = np.ascontiguousarray(counts, np.int32)
+        cap = nreads * (192 + 12 * n_targets) + 1024
+        out = ctypes.create_string_buffer(cap)
+        w = lib.format_rows_extended(
+            dp, _p(ns, _I64P), _p(ne, _I64P), _p(cc, _I32P), _p(tt, _I32P),
+            _p(ib, _I32P), _p(bb, _I32P), _p(sb, _I32P), _p(nm, _I64P),
+            nreads, n_targets, k, *names_args, out, cap,
+        )
+    else:
+        cap = nreads * 192 + 1024
+        out = ctypes.create_string_buffer(cap)
+        w = lib.format_rows(
+            dp, _p(ns, _I64P), _p(ne, _I64P), _p(tt, _I32P), _p(ib, _I32P),
+            _p(bb, _I32P), _p(sb, _I32P), _p(nm, _I64P), nreads, k,
+            *names_args, out, cap,
+        )
     if w < 0:
         raise RuntimeError("format_rows buffer overflow")
     return out.raw[:w]
+
+
+# ---------------------------------------------------------- paired-end merge
+def merge_paired_stream(data1, data2, chunk_cap: int = 1 << 28):
+    """Yield merged-FASTA chunks of two FASTQ buffers (file.cc:205-268
+    semantics) through a bounded native buffer; data1/data2 may be mmaps, so
+    a multi-GB pair merges with O(chunk_cap) memory."""
+    lib = _load()
+    a1, dp1 = _u8(data1)
+    a2, dp2 = _u8(data2)
+    try:
+        n1, n2 = len(a1), len(a2)
+        if a1[:1].tobytes() != b"@" or a2[:1].tobytes() != b"@":
+            raise ValueError("paired-end reads must be FASTQ files")
+        pos = np.zeros(2, dtype=np.int64)
+        status = np.zeros(1, dtype=np.int32)
+        # the merged output never exceeds the combined input (+16 framing
+        # headroom), so small in-memory merges allocate small buffers
+        cap = min(int(chunk_cap), n1 + n2 + 16)
+        out = np.empty(cap, dtype=np.uint8)
+        while True:
+            w = lib.merge_paired_chunk(
+                dp1, n1, dp2, n2,
+                _p(pos[0:1], _I64P), _p(pos[1:2], _I64P),
+                _p(out, _U8P), cap, _p(status, _I32P),
+            )
+            st = int(status[0])
+            if st == -1:
+                raise ValueError("read id does not match between files")
+            if st == -2:  # a single record exceeds cap
+                cap *= 2
+                out = np.empty(cap, dtype=np.uint8)
+                continue
+            if w:
+                yield out[:w].tobytes()
+            if st == 0:
+                return
+    finally:
+        # drop the buffer views before the caller's mmap close; an exception's
+        # traceback keeps this frame alive, and exported views make
+        # mmap.close() raise BufferError, masking the real error
+        del a1, a2, dp1, dp2
 
 
 # ------------------------------------------------------------- DB build ops
@@ -275,3 +384,82 @@ def _serialize(canon, labels, htsize, rem_bits, key_dtype, pbits):
     if rc != 0:
         raise BucketOverflowError("bucket list size exceeds 255")
     return sizes, keys[:n], labs[:n]
+
+
+def saturating_group_sum(bounds: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """Per-group lElement.AddToCount saturating sums (dataType.hh:333-334);
+    group g spans v[bounds[g]:bounds[g+1]]."""
+    lib = _load()
+    bounds = np.ascontiguousarray(bounds, np.int64)
+    v = np.ascontiguousarray(v, np.int64)
+    ngroups = len(bounds) - 1
+    out = np.empty(max(ngroups, 1), np.int64)
+    lib.saturating_group_sum(_p(bounds, _I64P), ngroups, _p(v, _I64P),
+                             _p(out, _I64P))
+    return out[:ngroups]
+
+
+KV_DTYPE = np.dtype([("k", "<u8"), ("v", "<i8")])  # native KV struct layout
+
+
+def occ_partition_count(canon, shift: int, counts):
+    """Accumulate per-partition occurrence counts (pid = canon >> shift)."""
+    lib = _load()
+    canon = np.ascontiguousarray(canon, np.uint64)
+    lib.occ_partition_count(_p(canon, _U64P), len(canon), shift,
+                            _p(counts, _I64P))
+
+
+def occ_partition_scatter(canon, label: int, base_index: int, shift: int,
+                          cursors, kv_buf):
+    """Scatter one file's occurrences (constant label) into the KV
+    partition buffer (payload = global index << 16 | label); cursors
+    advance in place."""
+    lib = _load()
+    canon = np.ascontiguousarray(canon, np.uint64)
+    lib.occ_partition_scatter(
+        _p(canon, _U64P), len(canon), label, base_index, shift,
+        _p(cursors, _I64P), kv_buf.ctypes.data,
+    )
+
+
+def _aggregate_outputs(n: int):
+    return (np.empty(max(n, 1), np.uint64), np.empty(max(n, 1), np.int32),
+            np.empty(max(n, 1), np.int32), np.empty(max(n, 1), np.int64),
+            np.empty(max(n, 1), np.int64))
+
+
+def aggregate_kv_range(kv_buf, start: int, n: int, pg, lelement: bool):
+    """Sort + aggregate one partition [start, start+n) of the KV buffer in
+    place; returns (canon, L0, mult, count, first_seq) for that range."""
+    lib = _load()
+    pg = np.ascontiguousarray(pg, np.int32)
+    outs = _aggregate_outputs(n)
+    oc, ol, om, on, of = outs
+    ng = lib.aggregate_kv_range(
+        kv_buf.ctypes.data + start * KV_DTYPE.itemsize, n, _p(pg, _I32P),
+        1 if lelement else 0,
+        _p(oc, _U64P), _p(ol, _I32P), _p(om, _I32P), _p(on, _I64P),
+        _p(of, _I64P),
+    )
+    return tuple(a[:ng].copy() for a in outs)
+
+
+def aggregate_occurrences(canon, label, pg, lelement: bool):
+    """(canon_u, L0, mult, count, first_seq) for unit-count occurrences in
+    stream order: the host aggregate (sort by (canonical, stream index),
+    then one pass applying the multiplicity/count rules)."""
+    lib = _load()
+    canon = np.ascontiguousarray(canon, np.uint64)
+    label = np.ascontiguousarray(label, np.int32)
+    pg = np.ascontiguousarray(pg, np.int32)
+    n = len(canon)
+    outs = _aggregate_outputs(n)
+    oc, ol, om, on, of = outs
+    ng = lib.aggregate_occurrences(
+        _p(canon, _U64P), _p(label, _I32P), n, _p(pg, _I32P),
+        1 if lelement else 0,
+        _p(oc, _U64P), _p(ol, _I32P), _p(om, _I32P), _p(on, _I64P),
+        _p(of, _I64P),
+    )
+    return tuple(a[:ng] for a in outs)  # views

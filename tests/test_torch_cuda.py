@@ -24,12 +24,34 @@ def dev():
 
 def test_kernels_equal_their_twins(dev):
     kernels.reset_launches()
-    assert chip_smoke.check_kernels(dev) == 12 + 3 + 6
-    assert kernels.LAUNCHES == {"window_canonicals": 12, "probe": 3, "top2": 6}
+    assert chip_smoke.check_kernels(dev) == 12 + 3 + 6 + 6 + 4 + 9
+    assert kernels.LAUNCHES == {"window_canonicals": 12, "probe": 3, "top2": 6,
+                                "sort_top2": 6, "counts_top2": 4,
+                                "aggregate": 9}
 
 
 def test_goldens_through_the_kernels(dev, tmp_path):
-    assert chip_smoke.check_goldens(dev, str(tmp_path)) == 4
+    assert chip_smoke.check_goldens(dev, str(tmp_path)) == 6
+    assert chip_smoke.check_golden_dbs(dev, str(tmp_path)) == 3
+
+
+def test_dense_targets_through_the_counts_kernel(dev, tmp_path):
+    launches = chip_smoke.check_dense_targets(dev, str(tmp_path))
+    assert launches["counts_top2"] > 0 and launches["sort_top2"] == 0
+
+
+def test_new_wrappers_reject_bad_input(dev):
+    kernels.reset_launches()
+    lab = torch.ones((2, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        kernels.sort_top2(lab.to(torch.int64))
+    with pytest.raises(ValueError):
+        kernels.counts_top2(lab, 0)
+    keys = torch.zeros(4, dtype=torch.int64, device=dev)
+    label = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # seq of another length
+        kernels.aggregate(keys, keys[:3], label, label[:1], True)
+    assert all(v == 0 for v in kernels.LAUNCHES.values())
 
 
 def test_wrapper_rejects_bad_input(dev):

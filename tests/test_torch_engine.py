@@ -1,6 +1,7 @@
 """The classify slice of the PyTorch port end to end on the CPU (plain
 twins of the kernels): byte-equal CSVs against the reference goldens and
-against the JAX engine, the CLI, and the modes that are not ported yet."""
+against the JAX engine, the CLI (single-end, paired-end, extended), and the
+modes that are not ported yet."""
 
 import gzip
 import os
@@ -158,9 +159,65 @@ def test_cli_classify_matches_library(random_db, tmp_path):
     assert (tmp_path / "cli.csv").read_bytes() == (tmp_path / "lib.csv").read_bytes()
 
 
+def _pairs(fa: bytes, tmp_path):
+    """R1/R2 FASTQ files of the reads' first and second halves."""
+    r1, r2 = [], []
+    for i, rec in enumerate(fa.split(b">")[1:]):
+        seq = rec.split(b"\n")[1]
+        h = len(seq) // 2
+        for out, part in ((r1, seq[:h]), (r2, seq[h:])):
+            out.append(b"@p%d/x\n%s\n+\n%s\n" % (i, part, b"I" * len(part)))
+    (tmp_path / "r1.fq").write_bytes(b"".join(r1))
+    (tmp_path / "r2.fq").write_bytes(b"".join(r2))
+    return str(tmp_path / "r1.fq"), str(tmp_path / "r2.fq")
+
+
+@pytest.mark.parametrize("mode", ["paired", "extended", "extended+paired",
+                                  "paired list", "paired gzipped"])
+def test_cli_paired_and_extended_match_library(random_db, tmp_path, mode,
+                                               capsys):
+    """`classify -P R1 R2` (one pair, a list of pairs, gzipped) and
+    `--extended --verbose` write what the library writes."""
+    tmp, prof, fa = random_db
+    db = _config(random_db, tmp_path)
+    r1, r2 = _pairs(fa, tmp_path)
+    extended = "extended" in mode
+    paired = "paired" in mode
+    args = ["classify", "-D", str(db), "-R", str(tmp_path / "cli"),
+            "--device", "cpu"]
+    if paired:
+        p1, p2 = r1, r2
+        if mode == "paired list":
+            (tmp_path / "l1").write_text(r1 + "\n")
+            (tmp_path / "l2").write_text(r2 + "\n")
+            (tmp_path / "lr").write_text(str(tmp_path / "cli") + "\n")
+            p1, p2 = str(tmp_path / "l1"), str(tmp_path / "l2")
+            args[args.index("-R") + 1] = str(tmp_path / "lr")
+        if mode == "paired gzipped":
+            for src in (r1, r2):
+                with open(src, "rb") as f, gzip.open(src + ".gz", "wb") as g:
+                    g.write(f.read())
+            p1, p2 = r1 + ".gz", r2 + ".gz"
+            args.append("--gzipped")
+        args += ["-P", p1, p2]
+    else:
+        args += ["-O", str(tmp_path / "reads.fa")]
+    if extended:
+        args += ["--extended", "--verbose"]
+    assert cli.main(args) == 0
+    clf = Classifier.load(str(db), str(db / "targets.txt"), prof, 9,
+                          device="cpu")
+    stats = clf.classify_file(r1 if paired else str(tmp_path / "reads.fa"),
+                              str(tmp_path / "lib"),
+                              paired_path=r2 if paired else None,
+                              extended=extended)
+    assert (tmp_path / "cli.csv").read_bytes() == (tmp_path / "lib.csv").read_bytes()
+    err = capsys.readouterr().err
+    assert (stats["hit_stats"].report() in err) if extended else (
+        "MIN targets" not in err)
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["-P", "a.fq", "b.fq"], "A6"),
-    (["--extended"], "A6"),
     (["--db-cycles", "2"], "A7"),
     (["--shard-db"], "A9"),
     (["-d", "2"], "A9"),
@@ -183,11 +240,17 @@ def test_library_rejects_modes_not_ported(random_db, tmp_path):
             Classifier.load(*args, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="Do not port"):
         Classifier.load(*args, device="cpu", packed=False)
+    # paired and extended runs, formerly rejected here (A6), now classify:
+    # extended + paired through the library equals the JAX engine
     clf = Classifier.load(*args, device="cpu")
-    (tmp_path / "r.fa").write_bytes(fa)
-    for kw in (dict(paired_path=str(tmp_path / "r.fa")), dict(extended=True)):
-        with pytest.raises(NotImplementedError, match="A6"):
-            clf.classify_file(str(tmp_path / "r.fa"), str(tmp_path / "o"), **kw)
+    r1, r2 = _pairs(fa, tmp_path)
+    jdb = tmp_path / "jdb"
+    shutil.copytree(tmp, jdb)
+    jclf = JClassifier.load(str(jdb), str(jdb / "targets.txt"), prof, 9)
+    for side, c in (("torch", clf), ("jax", jclf)):
+        c.classify_file(r1, str(tmp_path / side), paired_path=r2,
+                        extended=True)
+    assert (tmp_path / "torch.csv").read_bytes() == (tmp_path / "jax.csv").read_bytes()
 
 
 def test_cuda_without_a_card_raises(random_db, monkeypatch):

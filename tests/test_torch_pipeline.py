@@ -1,6 +1,7 @@
 """Device step of the PyTorch port against the JAX package, on the CPU:
 the plain-PyTorch twins of kernels K1 (window_canonicals), K3 (top2) and
-the whole classify_batch, held to exact integer equality."""
+the whole classify_batch in its three scoring forms, held to exact integer
+equality."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -127,11 +128,30 @@ def test_classify_batch_equals_jax(k):
 
 
 def test_classify_batch_rejects_extended():
-    table = radix_table.to_device(radix_table.build(
-        np.arange(1, 50, dtype=np.uint64), np.ones(49, np.int32)), "cpu")
-    words = torch.zeros((2, 3), dtype=torch.int64)
-    vwords = torch.zeros((2, 2), dtype=torch.int64)
+    """The extended forms, formerly rejected here, score as the JAX
+    package's classify_batch does: the sorted u16 label grid ("sorted") and
+    the dense [R, T+1] counts (True)."""
+    rng = np.random.default_rng(11)
+    keys = np.unique(rng.integers(0, 1 << 18, size=3000, dtype=np.uint64))
+    labels1 = rng.integers(1, 6, size=len(keys)).astype(np.int32)
+    table = jrt.build(keys, labels1, k=9)
+    data = _reads(rng, 50, 9, 120, n_frac=0.02)
+    (words, vwords), _ = _packed(data, 128)
+    tbl = radix_table.to_device(table, "cpu")
     for ext in (True, "sorted"):
-        with pytest.raises(NotImplementedError, match="A6"):
-            device_pipeline.classify_batch(table, words, vwords, k=9,
-                                           n_targets=1, extended=ext)
+        want = jdp.classify_batch(
+            jnp.asarray(table.slots), jnp.asarray(table.labels),
+            jnp.asarray(table.stash_keys), jnp.asarray(table.stash_labels),
+            jnp.asarray(words), jnp.asarray(vwords), k=9, n_targets=5,
+            extended=ext, probe_cols=96, **table.meta,
+        )
+        got = device_pipeline.classify_batch(
+            tbl, _t(words), _t(vwords), k=9, n_targets=5, extended=ext,
+            probe_cols=96,
+        )
+        for g, w in zip(got[:4], want[:4]):
+            assert np.array_equal(g.numpy(), np.asarray(w)), ext
+        extra = got[4].numpy()
+        if ext == "sorted":
+            extra = extra.view(np.uint16)
+        assert np.array_equal(extra, np.asarray(want[4])), ext

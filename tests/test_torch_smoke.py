@@ -19,21 +19,44 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_phases_on_cpu(tmp_path):
     dev = torch.device("cpu")
-    assert chip_smoke.check_kernels(dev) == 12 + 3 + 6
-    assert chip_smoke.check_goldens(dev, str(tmp_path)) == 4
+    assert chip_smoke.check_kernels(dev) == 12 + 3 + 6 + 6 + 4 + 9
+    assert chip_smoke.check_goldens(dev, str(tmp_path)) == 6
+    assert chip_smoke.check_golden_dbs(dev, str(tmp_path)) == 3
+    dense = chip_smoke.check_dense_targets(dev, str(tmp_path), n_reads=40)
     scale = tmp_path / "scale"
     scale.mkdir()
     prof = Profile(name="t", htsize=1048573, light=False, default_k=31)
     m, launches, clf, fa, lens = chip_smoke.run_scale(
-        dev, str(scale), 3, 20_000, 1500, prof=prof
+        dev, str(scale), 3, 20_000, 1500, n_pairs=300, prof=prof
     )
-    assert m["reads"] == 1500 and m["db_keys"] > 55_000
-    assert set(m["phase_s"]) >= {"scan", "pack", "dispatch", "device_wait",
-                                 "format"}
-    assert launches == {"window_canonicals": 0, "probe": 0, "top2": 0}
-    timing, shape = chip_smoke.time_kernels(dev, clf, fa, lens, reps=1)
+    assert m["reads"] == 1500 and m["pairs"] == 300
+    assert m["db_keys"] > 55_000 and m["db_distinct_kmers"] >= m["db_keys"]
+    for path in ("classify", "extended", "paired"):
+        assert set(m["phase_s"][path]) >= {"scan", "pack", "dispatch",
+                                           "device_wait", "format"}
+    assert m["hit_stats"].startswith("MIN targets: 0, MAX targets: 1")
+    for side in ("device", "host"):  # the build's stage timers
+        assert set(m[f"db_build_{side}_phase_s"]) == {
+            "extract", "aggregate", "filter", "write"}
+    launches["dense 65535 targets"] = dense
+    assert set(launches) == set(chip_smoke.PATH_KERNELS)
+    assert all(c == 0 for p in launches.values() for c in p.values())
+    with pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.check_launches(launches)  # the CPU runs the twins
+    timing, shape = chip_smoke.time_kernels(dev, clf, fa, lens, str(scale), 3,
+                                            reps=1, dense_rows=8)
     assert shape["stride"] == 256 and shape["windows"] == 224
+    assert shape["partition_entries"] == 1 << 20
+    assert set(timing) == set(chip_smoke.KERNELS) | {"counts_top2 T=65535"}
     assert all(t["max_abs_err"] == 0.0 for t in timing.values())
+
+
+def test_extended_csv_less_counts_is_the_plain_csv():
+    ext = (b"Object_ID,1000,1001,Gamma,Assignment,Score,Confidence\n"
+           b"r0,5,0,0.5,1000,5,1\nr1,0,0,0,NA,0,0\n")
+    assert chip_smoke.drop_count_columns(ext, 2) == (
+        b"Object_ID,Gamma,Assignment,Score,Confidence\n"
+        b"r0,0.5,1000,5,1\nr1,0,NA,0,0\n")
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])
