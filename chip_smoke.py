@@ -11,8 +11,11 @@ raises and exits non-zero before the result lines:
   1 build    compiles the native host runtime (g++) and the two CUDA kernel
              libraries (nvcc, sm_90a), all at once, from the checkout's
              sources
-  2 kernels  K1-K6 on the card against their plain-PyTorch twins on the
-             same inputs, exact equality (integers; tolerance 0)
+  2 kernels  K1-K8 on the card against their plain-PyTorch twins on the
+             same inputs, exact equality (integers; tolerance 0); K7 across
+             chunk edges, cycles 2-5 (padded last chunks), the stash on and
+             off, k = 32 keys and the u16 label grid of the labels
+             strategy; K8 with keys in plane 2 and the stash
   3 goldens  classify the reference's golden reads on the card (single-end,
              --extended, paired): the six CSVs must be byte-equal to
              tests/golden; rebuild three golden DBs with device="cuda"
@@ -31,17 +34,33 @@ raises and exits non-zero before the result lines:
              plain one.  Kernel launch counts are reset just before each
              path (the device build, each timed classify, and phase 3's
              65,535-target run) and read after it
-  5 timing   each kernel and its twin at the shapes of those paths
+  4b out-of-core  the same reads against the same DB four more ways, each
+             after a warm-up: 4 cycles (counts strategy) plain and
+             --extended, 3 cycles (labels strategy), CLARK_TPU_DENSE=force,
+             and the auto policy under two CLARK_TPU_DEVICE_MEM_BYTES
+             limits (dense, then cycles); every CSV byte-equal to phase 4's
+             resident one, as are two threads' concurrent runs through the
+             4-cycle Classifier; a cycle-outer classify_files over four
+             samples byte-equal to serial runs
+  4c refseq-shape  5,000 targets x 50,000 bp (benchmarks/refseq_scale.py),
+             200,000 reads of 150 bp (20% random): `db build --device`,
+             then resident, 3 cycles (auto strategy: labels) and
+             dense-forced, every read assigned right and the three CSVs
+             byte-equal
+  5 timing   each kernel and its twin at the shapes of those paths, with
+             its bound and a one-call PyTorch yardstick where one exists
 
 The last two lines are the kernels' JSON record and the run's contract
 line {"ok": true, "device": {...}}.  With no CUDA device it exits 1 and
-prints neither.  Smaller scales (--genomes/--genome-len/--reads) are for
-rehearsal; the defaults are the measured configuration.
+prints neither.  It takes no arguments; a rehearsal at a smaller scale
+calls the phase functions (check_kernels, run_scale, run_out_of_core,
+run_refseq, time_kernels) with smaller sizes, as tests/test_torch_smoke.py
+does on the CPU.
 """
 
 from __future__ import annotations
 
-import argparse
+import contextlib
 import gzip
 import json
 import os
@@ -68,7 +87,7 @@ from jn_cuclark_tpu_torch.ops import (
     score,
 )
 from jn_cuclark_tpu_torch.params import Profile
-from jn_cuclark_tpu_torch.utils import native, profiling
+from jn_cuclark_tpu_torch.utils import memory, native, profiling
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLD = os.path.join(ROOT, "tests", "golden")
@@ -85,6 +104,10 @@ KERNELS = {
     "counts_top2": (_KDIR + "classify.cu", "jn_cuclark_tpu/ops/score.py:17"),
     "aggregate": (_KDIR + "aggregate.cu",
                   "jn_cuclark_tpu/db/device_build.py:30"),
+    "probe_chunk": (_KDIR + "classify.cu",
+                    "jn_cuclark_tpu/ops/radix_table.py:411"),
+    "probe_dense": (_KDIR + "classify.cu",
+                    "jn_cuclark_tpu/ops/radix_table.py:602"),
 }
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 U64_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -223,6 +246,101 @@ def k6_cases(seed: int = 0):
         np.concatenate([l, np.zeros(pad, np.int32)]), pg, True)
 
 
+def keys_in_rows(rng, rows, m1: int) -> np.ndarray:
+    """One key bucketed into each of `rows` of a 2^m1-row table (the mix
+    inverted, random quotients)."""
+    low = rng.integers(0, 1 << (64 - m1), size=len(rows), dtype=np.uint64)
+    mixed = (np.asarray(rows, np.uint64) << np.uint64(64 - m1)) | low
+    with np.errstate(over="ignore"):
+        return mixed * radix_table._MIX1_INV
+
+
+def k7_cases(seed: int = 0):
+    """(label, (RadixTable, q, cycles, n_keys, labels1)) on the host for the
+    chunk probe, q starting with the n_keys stored keys: a
+    forced stash at cycles = 3 (2^m1 is no multiple of 3, so the last chunk
+    is padded), k = 32 keys (bit 63 set on half), lb = 17 at cycles = 5
+    and k = 27 keys at cycles = 2.  Every chunk's first and last row holds
+    a stored key; queries are the stored keys, misses and EMPTY."""
+    rng = np.random.default_rng(seed)
+    for label, n, maxlab, kbits, cycles, kw in (
+        ("forced stash cycles=3", 20_000, 40, 64, 3, dict(c=4, load=16.0)),
+        ("k=32 cycles=4", 200_000, 1000, 64, 4, {}),
+        ("lb=17 cycles=5", 300_000, 65535, 64, 5, {}),
+        ("k=27 cycles=2", 100_000, 300, 54, 2, {}),
+    ):
+        keys = np.unique(rng.integers(0, (1 << kbits) - 2, size=n,
+                                      dtype=np.uint64))
+        m1 = radix_table.build(keys, np.full(len(keys), maxlab, np.int32),
+                               **kw).m1
+        rows_per = -(-(1 << m1) // cycles)
+        edge = sorted({r for i in range(cycles)
+                       for r in (i * rows_per, (i + 1) * rows_per - 1)
+                       if r < 1 << m1})
+        keys = np.unique(np.concatenate([keys, keys_in_rows(rng, edge, m1)]))
+        labels1 = rng.integers(1, maxlab + 1, size=len(keys)).astype(np.int32)
+        labels1[-1] = maxlab
+        table = radix_table.build(keys, labels1, **kw)
+        if table.m1 != m1:
+            raise AssertionError(f"K7 {label}: m1 moved with the edge keys")
+        if kw and not (table.stash_keys != radix_table.EMPTY).any():
+            raise AssertionError(f"K7 {label}: the stash is empty")
+        q = np.concatenate([
+            keys, rng.integers(0, (1 << 64) - 2, size=20_000, dtype=np.uint64),
+            np.full(64, radix_table.EMPTY, np.uint64),
+        ])
+        yield label, (table, q, cycles, len(keys), labels1)
+
+
+def k8_cases(seed: int = 0):
+    """(label, (DenseTable, q, n_keys, labels1)) on the host for the dense
+    probe: narrow rows crowded into plane 2 and the stash, k = 32 keys with
+    lb = 17 (65,535 labels), and 128-wide rows; queries are the stored
+    keys, misses and EMPTY."""
+    rng = np.random.default_rng(seed)
+    for label, n, maxlab, kbits, c, spills in (
+        ("plane 2 + stash c=2", 40_000, 50, 54, 2, (True, True)),
+        ("k=32 lb=17 c=16", 50_000, 65535, 64, 16, (False, False)),
+        ("plane 2 c=128", 58_000, 200, 54, 128, (True, False)),
+    ):
+        keys = np.unique(rng.integers(0, (1 << kbits) - 2, size=2 * n,
+                                      dtype=np.uint64))[:n]
+        labels1 = rng.integers(1, maxlab + 1, size=len(keys)).astype(np.int32)
+        labels1[-1] = maxlab
+        dense = radix_table.build_dense(keys, labels1, c=c)
+        in_plane2 = radix_table.occupied_count(dense.slots2, c)
+        in_stash = int((dense.stash_keys != radix_table.EMPTY).sum())
+        if (spills[0] and not in_plane2) or (spills[1] and not in_stash):
+            raise AssertionError(f"K8 {label}: {in_plane2} keys in plane 2, "
+                                 f"{in_stash} in the stash")
+        q = np.concatenate([
+            keys, rng.integers(0, (1 << 64) - 2, size=20_000, dtype=np.uint64),
+            np.full(64, radix_table.EMPTY, np.uint64),
+        ])
+        yield label, (dense, q[rng.permutation(len(q))], keys, labels1)
+
+
+def k7_labels_case(seed: int = 0):
+    """(words, vwords, RadixTable) on the host: reads of a genome whose
+    k-mers carry labels 40,000-45,000 at k = 31, for the cycled steps'
+    narrowed u16 grid (labels of 32,768 and up ride int16 as negatives)."""
+    rng = np.random.default_rng(seed)
+    genome = ACGT[rng.integers(0, 4, size=20_000)].tobytes()
+    keys = np.unique(native.extract_canonical(b">g\n" + genome + b"\n", 31,
+                                              False, 1))
+    labels1 = rng.integers(40_000, 45_001, size=len(keys)).astype(np.int32)
+    table = radix_table.build(keys, labels1, c=4, load=16.0)
+    lens = rng.integers(40, 257, size=2000)
+    pos = rng.integers(0, len(genome) - 256, size=2000)
+    data = b"".join(
+        b">r%d\n%s\n" % (i, genome[p : p + n] if i % 3 else
+                         ACGT[rng.integers(0, 4, size=n)].tobytes())
+        for i, (p, n) in enumerate(zip(pos, lens)))
+    _, _, _, ss, se, _ = native.scan_reads(data)
+    w, v = native.pack_batch(data, ss, se, 256)
+    return _i64(w), _i64(v), table
+
+
 def _agg_tensors(case, dev):
     c, l, pg, lelement = case
     return (_i64(c).to(dev), torch.from_numpy(l).to(dev),
@@ -269,6 +387,50 @@ def check_kernels(dev) -> int:
         _same(f"K6 {label}", got, device_build.aggregate_device_plain(*args))
         if label.startswith("padded"):  # the pad is one trailing group
             assert got[0][-1].item() == bits.EMPTY, "K6 pad group"
+        n += 1
+    for label, (table, q, cycles, n_keys, labels1) in k7_cases():
+        stash = radix_table.put_stash(table.stash_keys, table.stash_labels, dev)
+        q = _i64(q).to(dev)
+        total = torch.zeros(q.shape[0], dtype=torch.int32, device=dev)
+        for ch in radix_table.chunk_table(table, cycles):
+            args = (torch.from_numpy(ch["slots"].view(np.int32)).to(dev),
+                    *stash, q, ch["start_row"])
+            for use_stash in (True, False) if ch["use_stash"] else (False,):
+                kw = dict(m1=table.m1, lb=table.lb, use_stash=use_stash)
+                got = radix_table.probe_chunk(*args, **kw)
+                _same(f"K7 {label} chunk@{ch['start_row']} stash={use_stash}",
+                      [got], [radix_table.probe_chunk_plain(*args, **kw)])
+                if use_stash == ch["use_stash"]:
+                    total += got
+                n += 1
+        # over a pass of every chunk each stored key answers once
+        if not (torch.equal(total[:n_keys].cpu(), torch.from_numpy(labels1))
+                and not total[n_keys:].any()):
+            raise AssertionError(f"K7 {label}: a pass of every chunk does "
+                                 "not answer each stored key once")
+    w, v, table = k7_labels_case()
+    stash = radix_table.put_stash(table.stash_keys, table.stash_labels, "cpu")
+    for ch in radix_table.chunk_table(table, 3):
+        args = (torch.from_numpy(ch["slots"].view(np.int32)), *stash, w, v,
+                ch["start_row"], ch["use_stash"])
+        kw = dict(k=31, m1=table.m1, lb=table.lb, narrow=True)
+        want = device_pipeline.classify_batch_labels_chunk(*args, **kw)
+        got = device_pipeline.classify_batch_labels_chunk(
+            *(a.to(dev) if torch.is_tensor(a) else a for a in args), **kw)
+        _same(f"K7 u16 grid chunk@{ch['start_row']}", [got.cpu()], [want])
+        if ch["use_stash"] and not (want < 0).any():
+            raise AssertionError("K7 u16 grid: no label of 32,768 or more")
+        n += 1
+    for label, (dense, q, keys, labels1) in k8_cases():
+        tbl = radix_table.to_device(dense, dev)
+        q = _i64(q).to(dev)
+        _same(f"K8 {label}", [radix_table.probe_dense(tbl, q)],
+              [radix_table.probe_dense_plain(
+                  tbl.slots1, tbl.slots2, tbl.stash_keys, tbl.stash_labels, q,
+                  m1=tbl.m1, m2=tbl.m2, lb=tbl.lb)])
+        hit = radix_table.probe_dense(tbl, _i64(keys).to(dev))
+        if not torch.equal(hit.cpu(), torch.from_numpy(labels1)):
+            raise AssertionError(f"K8 {label}: a stored key missed")
         n += 1
     return n
 
@@ -427,9 +589,9 @@ def check_dense_targets(dev, tmp: str, n_reads: int = 200, seed: int = 3):
 
 
 # --------------------------------------------------------------- phase 4
-def make_genomes(td: str, rng, n_genomes: int, glen: int):
+def make_genomes(td: str, rng, n_genomes: int, glen: int, taxid0: int = 1000):
     """Random genomes g{i}.fa (one sequence line each) and targets.txt
-    labelling genome i with taxid 1000+i."""
+    labelling genome i with taxid taxid0+i."""
     genomes = []
     with open(os.path.join(td, "targets.txt"), "w") as tf:
         for i in range(n_genomes):
@@ -437,18 +599,20 @@ def make_genomes(td: str, rng, n_genomes: int, glen: int):
             p = os.path.join(td, f"g{i}.fa")
             with open(p, "wb") as f:
                 f.write(b">g%d\n%s\n" % (i, g.tobytes()))
-            tf.write(f"{p} {1000 + i}\n")
+            tf.write(f"{p} {taxid0 + i}\n")
             genomes.append(g)
     return genomes
 
 
-def make_reads(rng, genomes, n_reads: int):
-    """FASTA of n_reads reads of 100-250 bp, each drawn from genome
-    i % len(genomes) or, with probability 1/2, random; returns
-    (bytes, lengths, expected assignment per read)."""
+def make_reads(rng, genomes, n_reads: int, read_len: int | None = None,
+               junk_p: float = 0.5, taxid0: int = 1000):
+    """FASTA of n_reads reads of 100-250 bp (or all of read_len), each
+    drawn from genome i % len(genomes) or, with probability junk_p,
+    random; returns (bytes, lengths, expected assignment per read)."""
     glen = len(genomes[0])
-    lens = rng.integers(100, 251, size=n_reads)
-    junk = rng.random(n_reads) < 0.5
+    lens = (rng.integers(100, 251, size=n_reads) if read_len is None
+            else np.full(n_reads, read_len))
+    junk = rng.random(n_reads) < junk_p
     gid = np.arange(n_reads) % len(genomes)
     pos = rng.integers(0, glen - lens)
     offs = np.concatenate([[0], np.cumsum(lens)])
@@ -457,7 +621,7 @@ def make_reads(rng, genomes, n_reads: int):
     jmask = np.repeat(junk, lens)
     seq[jmask] = ACGT[rng.integers(0, 4, size=int(jmask.sum()))]
     seq = seq.tobytes()
-    expect = [b"NA" if j else b"%d" % (1000 + g) for j, g in zip(junk, gid)]
+    expect = [b"NA" if j else b"%d" % (taxid0 + g) for j, g in zip(junk, gid)]
     fa = b"".join(
         b">r%d_%s\n%s\n" % (i, b"junk" if junk[i] else b"g%d" % gid[i],
                             seq[offs[i] : offs[i + 1]])
@@ -621,7 +785,238 @@ def run_scale(dev, tmp: str, n_genomes: int, glen: int, n_reads: int,
     return m, launches, clf, fa, lens
 
 
+@contextlib.contextmanager
+def _env(**values):
+    """Set environment variables for the block, then restore them."""
+    old = {key: os.environ.get(key) for key in values}
+    os.environ.update({key: str(v) for key, v in values.items()})
+    try:
+        yield
+    finally:
+        for key, v in old.items():
+            if v is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = v
+
+
+def _load(dev, tmp: str, prof: Profile, **kw):
+    """(Classifier of the DB in tmp, seconds to load it)."""
+    t = time.perf_counter()
+    clf = Classifier.load(tmp, os.path.join(tmp, "targets.txt"), prof,
+                          prof.default_k, device=dev, **kw)
+    return clf, time.perf_counter() - t
+
+
+def run_path(dev, launches: dict, name: str, clf, reads: str, out: str, lens,
+             extended: bool = False):
+    """One classify path: a warm-up run, then a run with the launch counts
+    reset just before it and the phase timers on.  Returns (metrics, CSV
+    bytes)."""
+    clf.classify_file(reads, out, extended=extended)  # warm-up
+    cuda = dev.type == "cuda"
+    if cuda:
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    with profiling.collect() as ph:
+        stats, wall = _path(launches, name, lambda: clf.classify_file(
+            reads, out, extended=extended))
+    with open(out + ".csv", "rb") as f:
+        csv = f.read()
+    if clf.db_cycles > 1:
+        residency = dict(cycles=clf.db_cycles,
+                         strategy=clf._cycled_strategy([lens]),
+                         chunk_device_bytes=clf.table_chunks[0]["slots"].nbytes)
+    else:
+        residency = dict(cycles=1, strategy="dense" if clf.dense_table is not None
+                         else "resident", table_device_bytes=clf.table.nbytes)
+    m = dict(wall_s=wall, reads_per_s=stats["reads"] / wall,
+             kmer_lookups_per_s=float(np.maximum(lens - clf.k + 1, 0).sum())
+             / wall, **residency,
+             chunk_upload_s=ph.totals.get("chunk_upload", 0.0),
+             phase_s=dict(ph.totals))
+    if cuda:  # other classifiers' tables are in allocated_before
+        m["allocated_before"] = before
+        m["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    return m, csv
+
+
+def split_reads(fa: bytes, tmp: str, n: int):
+    """n files of consecutive records of a two-line-per-record FASTA;
+    returns classify_files items (path, None, result prefix)."""
+    lines = fa.split(b"\n")[:-1]
+    n_rec = len(lines) // 2
+    items = []
+    for i in range(n):
+        part = lines[2 * (i * n_rec // n) : 2 * ((i + 1) * n_rec // n)]
+        path = os.path.join(tmp, f"sample{i}.fa")
+        with open(path, "wb") as f:
+            f.write(b"\n".join(part) + b"\n")
+        items.append((path, None, os.path.join(tmp, f"sample{i}_cyc")))
+    return items
+
+
+def run_out_of_core(dev, tmp: str, prof: Profile, clf, fa: bytes, lens,
+                    launches: dict):
+    """Phase 4b: the config-2 reads classified four more ways against the
+    phase-4 DB, each CSV byte-equal to the resident run's: (a) 4 cycles,
+    auto strategy (counts at 16 targets), plain and extended; (b) 3 cycles,
+    labels strategy; (c) CLARK_TPU_DENSE=force; (d) the auto policy under
+    two CLARK_TPU_DEVICE_MEM_BYTES limits set from the table's own bytes:
+    one where only the dense layout fits (dense), one below it (cycles);
+    two threads' concurrent calls through the 4-cycle Classifier, and a
+    cycle-outer classify_files over four samples, byte-equal to serial
+    resident runs.  Returns (metrics, the dense classifier)."""
+    reads, res = os.path.join(tmp, "reads.fa"), os.path.join(tmp, "res")
+    want = {}
+    for ext in (False, True):
+        with open(res + ("_ext" if ext else "") + ".csv", "rb") as f:
+            want[ext] = f.read()
+    m = {}
+
+    def path(name, c, extended=False):
+        m[name], csv = run_path(dev, launches, name, c, reads,
+                                os.path.join(tmp, name.replace(" ", "_")),
+                                lens, extended)
+        if csv != want[extended]:
+            raise AssertionError(f"{name}: the CSV differs from the resident "
+                                 "run's")
+
+    cyc, m["load_cycles4_s"] = _load(dev, tmp, prof, db_cycles=4)
+    if cyc._cycled_strategy([lens]) != "counts":
+        raise AssertionError("4 cycles at 16 targets did not resolve to counts")
+    path("cycled counts", cyc)
+    path("cycled counts extended", cyc, extended=True)
+    outs = [os.path.join(tmp, f"cycled_thread{i}") for i in range(2)]
+    with ThreadPoolExecutor(max_workers=2) as ex:  # one Classifier, 2 calls
+        list(ex.map(lambda out: cyc.classify_file(reads, out), outs))
+    for out in outs:
+        with open(out + ".csv", "rb") as f:
+            if f.read() != want[False]:
+                raise AssertionError("a concurrent cycled call's CSV differs "
+                                     "from the resident run's")
+
+    items = split_reads(fa, tmp, 4)
+    stats, wall = _path(launches, "cycle-outer files",
+                        lambda: cyc.classify_files(items, jobs=4))
+    if not all(s.get("aggregate") for s in stats):
+        raise AssertionError("classify_files did not run cycle-outer")
+    for obj, _, out in items:
+        clf.classify_file(obj, out + "_serial")
+        with open(out + ".csv", "rb") as a, open(out + "_serial.csv", "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"cycle-outer {obj} differs from serial")
+    m["cycle-outer files"] = dict(samples=len(items), wall_s=wall,
+                                  reads_per_s=len(lens) / wall)
+    del cyc
+
+    lab, m["load_cycles3_labels_s"] = _load(
+        dev, tmp, prof, db_cycles=3, plan=BatchPlan(cycle_strategy="labels"))
+    path("cycled labels", lab)
+    del lab
+
+    with _env(CLARK_TPU_DENSE="force"):
+        dense, m["load_dense_s"] = _load(dev, tmp, prof)  # builds the cache
+    if dense.dense_table is None:
+        raise AssertionError("CLARK_TPU_DENSE=force did not engage dense")
+    m["dense_m1_m2"] = [dense.table.m1, dense.table.m2]
+    path("dense", dense)
+
+    transient = clf._transient_bytes()
+    for name, frac in (("auto dense", 0.75), ("auto cycled", 0.4)):
+        limit = memory.RESERVED + transient + int(clf.table.nbytes * frac)
+        with _env(CLARK_TPU_DEVICE_MEM_BYTES=limit):
+            auto, m[f"load_{name.replace(' ', '_')}_s"] = _load(dev, tmp, prof)
+        is_dense = auto.dense_table is not None
+        if is_dense != (name == "auto dense") or (not is_dense
+                                                  and auto.db_cycles < 2):
+            raise AssertionError(f"{name}: the policy chose dense={is_dense}, "
+                                 f"{auto.db_cycles} cycles")
+        path(name, auto)
+        m[name]["device_mem_limit"] = limit
+        del auto
+    return m, dense
+
+
+def run_refseq(dev, tmp: str, launches: dict, n_targets: int = 5000,
+               glen: int = 50_000, n_reads: int = 200_000, seed: int = 7):
+    """Phase 4c, the RefSeq shape (benchmarks/refseq_scale.py: 5,000
+    targets x 50,000 bp, reads of 150 bp, 20% random, full profile
+    k = 31): `db build --device`, then the reads
+    classified resident, in 3 cycles (auto strategy, which must resolve to
+    labels at 5,000 targets) and dense-forced.  Every genome read gets its
+    taxid, every random one NA, and the three CSVs are byte-equal."""
+    prof = params.FULL
+    k = prof.default_k
+    rng = np.random.default_rng(seed)
+    m = {}
+    t = time.perf_counter()
+    genomes = make_genomes(tmp, rng, n_targets, glen, taxid0=100_000)
+    targets = parse_targets(os.path.join(tmp, "targets.txt"))
+    fa, lens, expect = make_reads(rng, genomes, n_reads, read_len=150,
+                                  junk_p=0.2, taxid0=100_000)
+    reads = os.path.join(tmp, "reads.fa")
+    with open(reads, "wb") as f:
+        f.write(fa)
+    del genomes, fa
+    m["setup_s"] = time.perf_counter() - t
+    db, m["db_build_device_s"] = _path(
+        launches, "refseq db build",
+        lambda: builder.build_database(targets, tmp, prof, k, device=dev))
+    m["db_keys"] = len(db.canonical)
+    del db
+
+    clf, m["load_s"] = _load(dev, tmp, prof)
+    m["table_m1_lb"] = [clf.table.m1, clf.table.lb]
+    m["refseq resident"], want = run_path(
+        dev, launches, "refseq resident", clf, reads,
+        os.path.join(tmp, "resident"), lens)
+    check_csv(os.path.join(tmp, "resident.csv"), expect)
+    del clf
+    cyc, m["load_cycles3_s"] = _load(dev, tmp, prof, db_cycles=3)
+    if cyc._cycled_strategy([lens]) != "labels":
+        raise AssertionError("3 cycles at 5,000 targets did not resolve to "
+                             "labels")
+    m["refseq cycled"], csv = run_path(dev, launches, "refseq cycled", cyc,
+                                       reads, os.path.join(tmp, "cyc"), lens)
+    if csv != want:
+        raise AssertionError("refseq cycled CSV differs from the resident's")
+    del cyc
+    with _env(CLARK_TPU_DENSE="force"):
+        dense, m["load_dense_s"] = _load(dev, tmp, prof)
+    m["refseq dense"], csv = run_path(dev, launches, "refseq dense", dense,
+                                      reads, os.path.join(tmp, "dense"), lens)
+    if dense.dense_table is None or csv != want:
+        raise AssertionError("refseq dense CSV differs from the resident's")
+    m["reads"], m["targets"], m["genome_len"] = n_reads, n_targets, glen
+    return m
+
+
 # --------------------------------------------------------------- phase 5
+# Published rates of one NVIDIA H100 SXM at its 700 W limit: device memory,
+# and float32 outside the tensor cores, taken as the rate of the integer
+# compares and adds these kernels do on the CUDA cores.
+HBM_BYTES_PER_S = 3.35e12
+CUDA_CORE_OPS_PER_S = 67e12
+STASH = radix_table.STASH_CAP
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _distinct(rows: torch.Tensor) -> int:
+    """Distinct table rows among the buckets `rows`."""
+    return int(torch.unique(rows).numel())
+
+
+def _bound(nbytes: int, ops: int):
+    """(least milliseconds the card could take, what bounds it)."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
 def _ms(fn, dev, reps: int) -> float:
     fn()  # warm-up
     if dev.type != "cuda":
@@ -662,12 +1057,16 @@ def build_partition(tmp: str, n_genomes: int, k: int):
     return canon, label, builder._prefix_groups(targets)
 
 
-def time_kernels(dev, clf: Classifier, fa: bytes, lens, tmp: str,
-                 n_genomes: int, reps: int = 20, dense_rows: int = 2048):
-    """Each kernel and its twin at the shapes of the phase-4 paths.  K1-K5
-    on one batch of the scale run's reads at the stride-256 tier (reads of
-    193-250 bp), shaped as the planner shapes it: R = window_budget / 256
-    rows, W = probe_cols windows; K5 also at 65,535 targets on a
+def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
+                 tmp: str, n_genomes: int, reps: int = 20,
+                 dense_rows: int = 2048):
+    """Each kernel and its twin at the shapes of the phase-4 paths, with
+    its bound and, where one PyTorch call computes the same function, that
+    call's time.  K1-K5, K7 and K8 on one batch of the scale run's reads at
+    the stride-256 tier (reads of 193-250 bp), shaped as the planner shapes
+    it: R = window_budget / 256 rows, W = probe_cols windows; K7 against
+    the first chunk of the table's 4-cycle split, K8 against the `dense`
+    classifier's two-plane table; K5 also at 65,535 targets on a
     [dense_rows, W] grid; K6 (with the torch.sort before it) on one padded
     partition of the scale run's occurrences."""
     _, _, _, ss, se, _ = native.scan_reads(fa)
@@ -693,46 +1092,110 @@ def time_kernels(dev, clf: Classifier, fa: bytes, lens, tmp: str,
         counts = score.counts_from_hits_plain(lab.view(-1), rid, R, T)
         return (counts,) + score.read_results_plain(counts)
 
+    def flat_bins(lab, T):
+        """The [R, T+1] counts' flat bin of every window, for bincount."""
+        R, W = lab.shape
+        rid = torch.arange(R, device=dev).repeat_interleave(W)
+        return rid * (T + 1) + lab.view(-1).long(), R * (T + 1)
+
+    qf = q.view(-1)
+    stash_bytes = _nbytes(tbl.stash_keys, tbl.stash_labels)
+    row_bytes = 2 * tbl.c * 4
+    # K7: chunk 0 (it carries the stash) of the 4-cycle split of the table
+    rows_per = tbl.slots.shape[0] // 4
+    chunk = tbl.slots[:rows_per]
+    b = radix_table._mix(qf, radix_table._MIX1_I64, tbl.m1)[0]
+    in_chunk = b < rows_per
+    # K8: the config-2 table in the dense layout
+    dt = dense.table
+    b1 = radix_table._mix(qf, radix_table._MIX1_I64, dt.m1)[0]
+    b2 = radix_table._mix(qf, radix_table._MIX2_I64, dt.m2)[0]
+    bins = {T: flat_bins(lab, T), 65535: flat_bins(lab_big, 65535)}
+    Q = qf.shape[0]
+    n_part = part[0].shape[0]
+
     plain_reps = max(reps // 10, 1)
+    # name: (kernel, plain twin, bytes read, operations, one library call
+    # computing the same function or None).  Bytes count each input once
+    # (for the probes: the distinct rows these queries touch) and the
+    # outputs are added from what the kernel returns; operations count the
+    # row and stash compares of the probes, a sort's n log2 n compares and
+    # one operation per input element elsewhere.
     runs = {
         "window_canonicals": (
             lambda: device_pipeline.window_canonicals(w, v, k, pc),
             lambda: device_pipeline.window_canonicals_plain(w, v, k, pc),
+            _nbytes(w, v), q.numel(), None,
         ),
         "probe": (
-            lambda: radix_table.probe(tbl, q.view(-1)),
+            lambda: radix_table.probe(tbl, qf),
             lambda: radix_table.probe_plain(tbl.slots, tbl.stash_keys,
-                                            tbl.stash_labels, q.view(-1),
+                                            tbl.stash_labels, qf,
                                             m1=tbl.m1, lb=tbl.lb),
+            _nbytes(qf) + _distinct(b) * row_bytes + stash_bytes,
+            Q * (2 * tbl.c + STASH), None,
         ),
         "top2": (
             lambda: score.top2_from_labels(lab),
             lambda: score.top2_from_labels_plain(lab),
+            _nbytes(lab), lab.numel(), None,
         ),
         "sort_top2": (
             lambda: score.sort_top2(lab),
             lambda: score.sort_top2_plain(lab),
+            _nbytes(lab), lab.numel(), lambda: torch.sort(lab, dim=1),
         ),
         "counts_top2": (
             lambda: score.counts_top2(lab, T),
             lambda: counts_plain(lab, T),
+            _nbytes(lab), lab.numel(),
+            lambda: torch.bincount(bins[T][0], minlength=bins[T][1]),
         ),
         "counts_top2 T=65535": (
             lambda: score.counts_top2(lab_big, 65535),
             lambda: counts_plain(lab_big, 65535),
+            _nbytes(lab_big), lab_big.numel(),
+            lambda: torch.bincount(bins[65535][0], minlength=bins[65535][1]),
         ),
         "aggregate": (
             lambda: device_build._aggregate_device(*part),
             lambda: device_build.aggregate_device_plain(*part),
+            _nbytes(*part[:3]), n_part * max(n_part.bit_length() - 1, 1),
+            None,
+        ),
+        "probe_chunk": (
+            lambda: radix_table.probe_chunk(chunk, tbl.stash_keys,
+                                            tbl.stash_labels, qf, 0,
+                                            m1=tbl.m1, lb=tbl.lb,
+                                            use_stash=True),
+            lambda: radix_table.probe_chunk_plain(chunk, tbl.stash_keys,
+                                                  tbl.stash_labels, qf, 0,
+                                                  m1=tbl.m1, lb=tbl.lb,
+                                                  use_stash=True),
+            _nbytes(qf) + _distinct(b[in_chunk]) * row_bytes + stash_bytes,
+            int(in_chunk.sum()) * 2 * tbl.c + Q * STASH, None,
+        ),
+        "probe_dense": (
+            lambda: radix_table.probe_dense(dt, qf),
+            lambda: radix_table.probe_dense_plain(
+                dt.slots1, dt.slots2, dt.stash_keys, dt.stash_labels, qf,
+                m1=dt.m1, m2=dt.m2, lb=dt.lb),
+            _nbytes(qf) + (_distinct(b1) + _distinct(b2)) * 2 * dt.c * 4
+            + stash_bytes,
+            Q * (4 * dt.c + STASH), None,
         ),
     }
     out = {}
-    for name, (kern, plain) in runs.items():
+    for name, (kern, plain, nbytes, ops, library) in runs.items():
         got, want = kern(), plain()
-        err = _same(name, got if isinstance(got, tuple) else [got],
-                    want if isinstance(want, tuple) else [want])
+        got = got if isinstance(got, tuple) else (got,)
+        err = _same(name, got, want if isinstance(want, tuple) else [want])
+        bound_ms, bound_by = _bound(nbytes + _nbytes(*got), ops)
         out[name] = dict(max_abs_err=err, ms=_ms(kern, dev, reps),
-                         plain_ms=_ms(plain, dev, plain_reps))
+                         plain_ms=_ms(plain, dev, plain_reps),
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None if library is None
+                         else _ms(library, dev, reps))
     # K6 split: the torch.sort before it, and the kernel's own pass
     keys, seq = torch.sort(part[0] ^ device_build.SIGN, stable=True)
     out["aggregate"]["sort_ms"] = _ms(
@@ -742,21 +1205,25 @@ def time_kernels(dev, clf: Classifier, fa: bytes, lens, tmp: str,
             lambda: kernels.aggregate(keys, seq, *part[1:]), dev, reps)
     return out, dict(rows=len(idx), stride=stride, windows=pc,
                      queries=len(idx) * pc, targets=T, dense_rows=dense_rows,
-                     partition_entries=part[0].shape[0])
+                     partition_entries=part[0].shape[0],
+                     chunk_rows=rows_per, queries_in_chunk=int(in_chunk.sum()),
+                     distinct_rows=dict(probe=_distinct(b),
+                                        probe_chunk=_distinct(b[in_chunk]),
+                                        probe_dense=[_distinct(b1),
+                                                     _distinct(b2)]),
+                     dense_m1_m2=[dt.m1, dt.m2])
 
 
 # ------------------------------------------------------------------ main
+N_GENOMES = 16  # phase 4: bench.py config 2, 16 genomes x 3 Mbp
+
+
 def _phase(phase: str, t0: float, **info):
     print(f"phase {phase}: ok {time.perf_counter() - t0:.3f}s "
           + json.dumps(info, default=str), flush=True)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--genomes", type=int, default=16)
-    ap.add_argument("--genome-len", type=int, default=3_000_000)
-    ap.add_argument("--reads", type=int, default=400_000)
-    args = ap.parse_args(argv)
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
@@ -798,22 +1265,38 @@ def main(argv=None) -> int:
         scale_dir = os.path.join(tmp, "scale")
         os.makedirs(scale_dir)
         metrics, launches, clf, fa, lens = run_scale(
-            dev, scale_dir, args.genomes, args.genome_len, args.reads
+            dev, scale_dir, N_GENOMES, 3_000_000, 400_000
         )
         launches["dense 65535 targets"] = dense
-        check_launches(launches)
         _phase("4 scale", t, launches=launches, **metrics)
 
         t = time.perf_counter()
-        timing, shape = time_kernels(dev, clf, fa, lens, scale_dir,
-                                     args.genomes)
+        printed = set(launches)
+        metrics, dense_clf = run_out_of_core(dev, scale_dir, params.FULL, clf,
+                                             fa, lens, launches)
+        _phase("4b out-of-core", t, **metrics)
+
+        t = time.perf_counter()
+        refseq_dir = os.path.join(tmp, "refseq")
+        os.makedirs(refseq_dir)
+        metrics = run_refseq(dev, refseq_dir, launches)
+        shutil.rmtree(refseq_dir)
+        check_launches(launches)
+        _phase("4c refseq-shape", t, launches={
+            name: n for name, n in launches.items() if name not in printed},
+            **metrics)
+
+        t = time.perf_counter()
+        timing, shape = time_kernels(dev, clf, dense_clf, fa, lens, scale_dir,
+                                     N_GENOMES)
         _phase("5 timing", t, shape=shape, **timing)
 
     record = {"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=sum(p[name] for p in launches.values()),
-             **{key: timing[name][key] for key in ("max_abs_err", "ms",
-                                                   "plain_ms")})
+             **{key: timing[name][key] for key in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")})
         for name, (src, rep) in KERNELS.items()
     ]}
     print(json.dumps(record), flush=True)
@@ -830,6 +1313,18 @@ PATH_KERNELS = {
     "extended": {"window_canonicals", "probe", "sort_top2"},
     "paired": {"window_canonicals", "probe", "top2"},
     "dense 65535 targets": {"window_canonicals", "probe", "counts_top2"},
+    "cycled counts": {"window_canonicals", "probe_chunk", "counts_top2"},
+    "cycled counts extended": {"window_canonicals", "probe_chunk",
+                               "counts_top2"},
+    "cycle-outer files": {"window_canonicals", "probe_chunk", "counts_top2"},
+    "cycled labels": {"window_canonicals", "probe_chunk", "top2"},
+    "dense": {"window_canonicals", "probe_dense", "top2"},
+    "auto dense": {"window_canonicals", "probe_dense", "top2"},
+    "auto cycled": {"window_canonicals", "probe_chunk", "counts_top2"},
+    "refseq db build": {"aggregate"},
+    "refseq resident": {"window_canonicals", "probe", "top2"},
+    "refseq cycled": {"window_canonicals", "probe_chunk", "top2"},
+    "refseq dense": {"window_canonicals", "probe_dense", "top2"},
 }
 
 

@@ -4,8 +4,9 @@ Subcommands (reference equivalents):
     db build         kent -d build step / cuCLARK DB construction
     classify         kent -c / classify_metagenome.sh / cuCLARK[-l]
 
-Classification (single-end, paired-end, --extended) runs against a resident
-table on one device.  The other `db` workflows (set-targets,
+Classification (single-end, paired-end, --extended, list mode with
+--jobs) runs on one device, the table resident or streamed in
+--db-cycles chunks.  The other `db` workflows (set-targets,
 update-taxonomy, download-*, clean) and the other subcommands of
 `jn_cuclark_tpu.cli` (abundance, merge, report, verify, cluster) wait for
 ROADMAP A9-A10; the `db` ones are listed and raise.
@@ -53,11 +54,16 @@ def _check_slice(args):
     if args.shard_db or args.dp or (args.devices and args.devices > 1):
         raise _not_ported("multi-device classification (-d/--dp/--shard-db)",
                           "A9")
-    if args.jobs > 1:
-        raise _not_ported("concurrent list mode (--jobs > 1)", "A10")
-    if args.db_cycles not in ("auto", "0", "1"):
-        raise _not_ported(f"out-of-core cycling (--db-cycles {args.db_cycles})",
-                          "A7")
+
+
+def _parse_cycles(v) -> int | str:
+    if isinstance(v, str) and v != "auto":
+        try:
+            return int(v)
+        except ValueError:
+            raise SystemExit(
+                f"--db-cycles must be an integer or 'auto', got {v!r}")
+    return v
 
 
 def _load_classifier(args):
@@ -84,6 +90,7 @@ def _load_classifier(args):
         sampling_factor=args.sampling_factor,
         gap=args.gap if args.gap is not None else cfg.gap,
         device=args.device,
+        db_cycles=_parse_cycles(args.db_cycles),
     )
 
 
@@ -106,9 +113,9 @@ def cmd_classify(args):
         raise SystemExit(
             "Device out of memory during classification.\n"
             f"  {str(e).splitlines()[0][:200]}\n"
-            "Free device memory held by other processes, or classify on a "
-            "larger card: streaming the DB in chunks (--db-cycles) is not "
-            "ported yet (ROADMAP A7)."
+            "Try: --db-cycles N (stream the DB in N chunks).  --db-cycles "
+            "auto (the default) budgets the DB from the card's memory; if "
+            "the limit was misdetected, set CLARK_TPU_DEVICE_MEM_BYTES."
         ) from e
 
 
@@ -157,6 +164,20 @@ def _cmd_classify(args):
 
         from .utils import profiling
 
+        if args.jobs > 1 and len(jobs) > 1 and not args.profile:
+            # concurrent list mode (cycle-outer when the table is cycled)
+            for (obj, _, _), stats in zip(jobs, clf.classify_files(
+                    jobs, jobs=args.jobs, extended=args.extended)):
+                # cycle-outer runs interleave the samples in each table
+                # pass: seconds and rate are the whole batch's
+                agg = " [whole batch]" if stats.get("aggregate") else ""
+                print(
+                    f"{obj}: done in {stats['seconds']:.1f}s{agg} "
+                    f"({stats['reads_per_min']} reads/min, "
+                    f"{stats['reads']} reads) -> {stats['result']}",
+                    file=sys.stderr,
+                )
+            return 0
         for obj, mate, res in jobs:
             print(f"Classifying: {obj}", file=sys.stderr)
             ctx = profiling.collect() if args.profile else contextlib.nullcontext()
@@ -265,8 +286,9 @@ def build_parser() -> argparse.ArgumentParser:
     pc.add_argument("-n", "--threads", type=int, default=None,
                     help="host threads for the native runtime (default: all)")
     pc.add_argument("--jobs", type=int, default=1,
-                    help="list mode: files classified concurrently "
-                    "(only 1 is ported)")
+                    help="list mode: files classified concurrently (with a "
+                    "cycled table, every file runs through each chunk "
+                    "upload)")
     pc.add_argument("-b", "--batches", type=int, default=None,
                     help="accepted for cuCLARK compatibility; batching is "
                     "automatic")
@@ -283,8 +305,9 @@ def build_parser() -> argparse.ArgumentParser:
     pc.add_argument("--shard-db", action="store_true",
                     help="shard the DB index over devices (not ported yet)")
     pc.add_argument("--db-cycles", default="auto",
-                    help="stream the DB index in N chunks (only auto/1 is "
-                    "ported: the table must fit the device)")
+                    help="stream the DB index in N chunks; auto (default) "
+                    "streams only a table above the device budget, or keeps "
+                    "it resident in the dense layout where that fits")
     pc.add_argument("--device", default="cuda",
                     help="torch device: cuda (default, hand-written kernels) "
                     "or cpu (plain-PyTorch twins)")

@@ -21,9 +21,12 @@ NBN.  Extended output adds one count column per target: below 65,535
 targets from each read's sorted per-window label row (kernel K4, expanded
 by the native formatter), at 65,535 from dense per-read counts (K5).
 
-Modes outside this slice (out-of-core cycling, the dense table, device
-meshes, concurrent files, the flat path) raise NotImplementedError naming
-their ROADMAP item.
+A table larger than the card's budget (utils/memory.py) stays resident in
+the dense two-plane layout when that fits (K8), else streams from the host
+in row chunks, one pass of every batch per chunk (K7), with labels or
+counts accumulated on the host between passes; `classify_files` runs
+several samples through each chunk upload.  Device meshes and the flat
+path raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -43,18 +46,28 @@ import numpy as np
 import torch
 
 from .io import dbformat
-from .io.fasta import iter_merged_slabs, iter_record_cuts, iter_record_slabs
+from .io.fasta import (
+    iter_merged_slabs,
+    iter_record_cuts,
+    iter_record_slabs,
+    merge_paired,
+)
 from .io.targets import TargetsDef, parse_targets
 from .ops import device_pipeline, radix_table
 from .params import NBN, Profile
-from .utils import native
+from .utils import memory, native
 from .utils.profiling import maybe_phase
 
-RESERVED = 768 << 20  # device headroom beyond the table and batch transients
-# device bytes of one batch's dense [R, T+1] count matrix (extended output
-# at 65,535 targets): rows per batch are capped to fit it.  The CSV does
-# not depend on batch shapes.
+# device bytes of one batch's dense [R, T+1] count matrix: rows per batch
+# are capped to fit it wherever a batch makes one (extended output at
+# 65,535 targets, the cycled "counts" strategy, an extended "labels"
+# finish).  The CSV does not depend on batch shapes.
 DENSE_COUNTS_BYTES = 256 << 20
+
+# pinned host bytes of one staging slice: a cycled chunk streams to the card
+# through two such slices in turn, so pinned memory does not grow with the
+# chunk
+STAGING_SLICE_BYTES = 64 << 20
 
 
 @dataclasses.dataclass
@@ -71,6 +84,11 @@ class BatchPlan:
     # batches: reads of a window are grouped by stride tier (stable within a
     # tier) so mixed-length inputs pack into dense same-stride batches; the
     # window is also the result-reorder granularity
+    cycle_strategy: str = "auto"  # out-of-core accumulation: "counts"
+    # keeps dense [R, T+1] per batch on the host (small for few targets);
+    # "labels" keeps each cycle's per-window labels [R, W] (target-count
+    # independent) and scores the concatenated cycles once; "auto" picks
+    # whichever holds fewer bytes
 
 
 def _stride_tiers(lengths: np.ndarray) -> np.ndarray:
@@ -236,6 +254,11 @@ class HitStats:
         )
 
 
+def _to_dev(a: np.ndarray, dev) -> torch.Tensor:
+    """A host u64 array on `dev` as int64 bit patterns."""
+    return torch.from_numpy(a.view(np.int64)).to(dev)
+
+
 def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to jn_cuclark_tpu_torch yet (ROADMAP {item})"
@@ -257,7 +280,10 @@ def _resolve_device(device) -> torch.device:
 
 
 class Classifier:
-    """Single-device CLARK classifier over a resident radix table."""
+    """Single-device CLARK classifier: the radix table resident (standard
+    or dense layout), or streamed from the host in cycles."""
+
+    dense_table = None  # the host DenseTable when the dense layout engaged
 
     def __init__(
         self,
@@ -282,15 +308,16 @@ class Classifier:
                 "the flat sorted-array path (packed=False) is not ported: "
                 "ROADMAP lists it under 'Do not port'"
             )
-        if db_cycles not in ("auto", 0, None, 1):
-            raise _not_ported(f"out-of-core cycling (db_cycles={db_cycles})",
-                              "A7")
         self.profile = profile
         self.k = k
         self.target_names = target_names
         self.n_targets = len(target_names) - 1  # names include NA at 0
         self.plan = plan or BatchPlan()
         self.device = _resolve_device(device)
+        auto_cycles = db_cycles in ("auto", 0, None)
+        self.db_cycles = db_cycles = 1 if auto_cycles else int(db_cycles)
+        if db_cycles < 1:
+            raise ValueError(f"db_cycles must be positive, got {db_cycles}")
 
         table = prebuilt_table
         if table is None and index_cache is not None and os.path.exists(
@@ -310,26 +337,112 @@ class Classifier:
                     )
                 except OSError:
                     pass
-        if self.device.type == "cuda":
-            free, _ = torch.cuda.mem_get_info(self.device)
-            # per batch in flight: q (8 B) + labels (4 B) + packed words per
-            # char slot, rounded up to 16 B
-            transient = self.plan.window_budget * 16 * (
-                self.plan.pipeline_depth + 1
-            )
-            budget = free - RESERVED - transient
-            if table.nbytes > budget:
-                raise _not_ported(
-                    f"a {table.nbytes >> 20} MB table above the device budget "
-                    f"of {max(budget, 0) >> 20} MB (out-of-core cycling or "
-                    "the dense table)",
-                    "A7",
-                )
-        self.table = radix_table.to_device(table, self.device)
         self.names = native.NamesBuffer(self.target_names)
+        budget = None
+        if auto_cycles:
+            # the reference derives parts x cycles from the device's memory
+            # less RESERVED (CuClarkDB.cu:526-565): a table above the budget
+            # cycles with no flags
+            db_cycles, budget = memory.auto_db_cycles(
+                table.nbytes, self._transient_bytes(), device=self.device
+            )
+            self.db_cycles = db_cycles
+            if db_cycles > 1:
+                print(
+                    f"Database ({table.nbytes >> 20} MB) exceeds the "
+                    f"device budget ({budget >> 20} MB): loading in "
+                    f"{db_cycles} cycles.",
+                    file=sys.stderr,
+                )
+        # dense two-plane residency: a table between 1x and ~2x the budget
+        # stays resident (two row reads per probe) instead of re-streaming
+        # every pass.  CLARK_TPU_DENSE: auto (default) / 0 (never) / force
+        # (even when the standard table fits, or cycles were asked for)
+        dense_env = os.environ.get("CLARK_TPU_DENSE", "auto")
+        forced = dense_env == "force"
+        if forced or (dense_env not in ("0", "off") and auto_cycles
+                      and db_cycles > 1):
+            if self._try_dense(canonical, labels, table, index_cache,
+                               index_sig, budget, forced) is not None:
+                self.db_cycles = 1
+                return
+        if db_cycles > 1:
+            # out of core: the chunks stay on the host, one uploaded per pass
+            self.table = None
+            self.table_meta = dict(m1=table.m1, lb=table.lb)
+            self.table_chunks = radix_table.chunk_table(table, db_cycles)
+            self.stash = radix_table.put_stash(
+                table.stash_keys, table.stash_labels, self.device)
+            self._upload_lock = threading.Lock()
+            self._staging = None  # (pinned slice, its copy's event) x 2
+            return
+        self.table = radix_table.to_device(table, self.device)
+
+    def _transient_bytes(self) -> int:
+        """Device bytes of the batches in flight (utils/memory.py)."""
+        counts = min(DENSE_COUNTS_BYTES,
+                     4 * self.plan.max_reads * (self.n_targets + 1))
+        return memory.probe_transient_bytes(
+            self.plan.window_budget, self.plan.pipeline_depth, counts)
+
+    def _try_dense(self, canonical, labels, table, index_cache, index_sig,
+                   budget, forced=False):
+        """Engage the dense two-plane residency: returns the DenseTable and
+        puts it on the device, or None where it would not fit the budget
+        either (the table then cycles).  With no budget (forced, explicit
+        cycles, or the CPU) it always engages."""
+        n_keys = len(canonical)
+        if n_keys == 0:
+            # the table came from the .idx cache (load() passes no keys
+            # then): its occupancy is the exact key count
+            n_keys = radix_table.occupied_count(
+                table.slots, table.slot_width
+            ) + int((table.stash_keys != radix_table.EMPTY).sum())
+        # K8 reads plane 2's rows in place: the second plane adds no batch
+        # transient (the JAX package adds a [Q, C] gather here)
+        if budget is not None and radix_table.dense_nbytes(
+            n_keys, self.n_targets, c=table.slot_width
+        ) > budget:
+            return None
+        dense_cache = index_cache + ".dense" if index_cache else None
+        dense = None
+        if dense_cache is not None and os.path.exists(dense_cache):
+            dense = radix_table.load_dense_cache(dense_cache,
+                                                 signature=index_sig)
+        if dense is None:
+            if len(canonical):
+                keys = np.asarray(canonical, dtype=np.uint64)
+                labs1 = np.asarray(labels, dtype=np.int32) + 1
+            else:
+                # the exact key/label set of the standard table (its slot
+                # layout is bijective: radix_table.recover_keys)
+                keys, labs1 = radix_table.recover_keys(table)
+            dense = radix_table.build_dense(keys, labs1, c=table.slot_width)
+            if dense_cache is not None:
+                try:
+                    radix_table.save_dense_cache(dense_cache, dense,
+                                                 signature=index_sig)
+                except OSError:
+                    pass
+        if budget is not None and dense.nbytes > budget:
+            return None  # the prediction was off: cycle instead
+        if not forced:
+            print(
+                f"Database ({table.nbytes >> 20} MB standard) fits "
+                f"resident in the dense two-choice layout "
+                f"({dense.nbytes >> 20} MB): probing dense instead of "
+                f"cycling.",
+                file=sys.stderr,
+            )
+        self.table = radix_table.to_device(dense, self.device)
+        self.dense_table = dense
+        return dense
 
     def batch_fn(self, words, vwords, extended=False, probe_cols=None):
-        return device_pipeline.classify_batch(
+        step = (device_pipeline.classify_batch_dense
+                if self.dense_table is not None
+                else device_pipeline.classify_batch)
+        return step(
             self.table, words, vwords, k=self.k, n_targets=self.n_targets,
             extended=extended, probe_cols=probe_cols,
         )
@@ -417,6 +530,12 @@ class Classifier:
         n_reads), rows a generator of formatted CSV body chunks (whole
         lines).  `hit_stats` (extended runs only) accumulates the
         reference's MIN/MAX/AVG distinct-targets-hit report."""
+        if self.db_cycles > 1:
+            with maybe_phase("scan"):
+                _, ns, ne, ss, se, ln = native.scan_reads(data)
+            return self._classify_cycled_native(
+                data, ns, ne, ss, se, ln, paired, extended, hit_stats
+            ), len(ln)
         n_reads = native.quick_count(data)
         scan = _ScanStream(data, self.plan.scan_chunk_bytes)
         return self._classify_native(data, scan, paired, extended,
@@ -452,21 +571,36 @@ class Classifier:
         first = next(slabs, None)
         # slab i+1 materializes (mmap page-in / paired merge) in a worker
         # thread while slab i classifies; the record scan itself streams
-        # inside _classify_native
+        # inside _classify_native.  The cycled path wants whole-slab
+        # arrays, so slab i+1 is also scanned in that thread.
+        cycled = self.db_cycles > 1
+
+        def stage(slab):
+            if not cycled:
+                return slab, None
+            with maybe_phase("scan"):
+                return slab, native.scan_reads(slab)
+
         scanned = (
-            self._pipelined(itertools.chain([first], slabs), lambda s: s,
-                            depth=1)
+            self._pipelined(itertools.chain([first], slabs), stage, depth=1)
             if first is not None else iter(())
         )
         hs = HitStats(self.n_targets) if extended else None
         with open(out, "wb") as f:
             f.write(self._header(extended))
-            for slab in scanned:
-                scan = _ScanStream(slab, self.plan.scan_chunk_bytes)
-                for chunk in self._classify_native(slab, scan, paired,
-                                                   extended, hs):
+            for slab, scn in scanned:
+                if cycled:
+                    _, ns, ne, ss, se, ln = scn
+                    gen = self._classify_cycled_native(
+                        slab, ns, ne, ss, se, ln, paired, extended, hs)
+                    nr = len(ln)
+                else:
+                    scan = _ScanStream(slab, self.plan.scan_chunk_bytes)
+                    gen = self._classify_native(slab, scan, paired,
+                                                extended, hs)
+                for chunk in gen:
                     f.write(chunk)
-                n_reads += scan.total()
+                n_reads += nr if cycled else scan.total()
         dt = time.time() - t0
         stats = {
             "reads": n_reads,
@@ -486,6 +620,386 @@ class Classifier:
                 f"{n_reads} reads)"
             )
         return stats
+
+    def classify_files(self, items: list[tuple], jobs: int = 2,
+                       extended: bool = False) -> list[dict]:
+        """Classify several independent inputs, `jobs` at a time.
+
+        Items are (objects_path, paired_path_or_None, result_path); the
+        returned stats follow the input order.  Small samples are single
+        batches, so classifying files concurrently fills each other's
+        dispatch and fetch gaps (the reference runs list-mode files one
+        after another, CuCLARK_hh.hh:384-507).  A cycled table instead
+        runs cycle-outer: each chunk is uploaded once and every sample's
+        batches probe it (`_classify_files_cycled`), unless the inputs
+        total more than CLARK_TPU_CYCLE_OUTER_MAX_BYTES (default 4 GiB),
+        since that path holds every sample and its packed batches in host
+        memory; above the cap the samples run one after another."""
+        if self.db_cycles > 1 and len(items) > 1:
+            total_bytes = sum(
+                os.path.getsize(p)
+                for o, pp, _ in items
+                for p in (o, pp)
+                if p is not None
+            )
+            cap = int(os.environ.get("CLARK_TPU_CYCLE_OUTER_MAX_BYTES",
+                                     4 << 30))
+            if total_bytes <= cap:
+                return self._classify_files_cycled(items, extended)
+            print(
+                f"cycle-outer scheduling skipped: inputs total "
+                f"{total_bytes >> 20} MB > {cap >> 20} MB cap "
+                "(CLARK_TPU_CYCLE_OUTER_MAX_BYTES); running samples "
+                "serially with slab streaming.",
+                file=sys.stderr,
+            )
+        if self.db_cycles > 1:
+            # concurrent cycled runs would each hold their own chunks on
+            # the device, which is what cycling exists to avoid
+            jobs = 1
+        if jobs <= 1 or len(items) <= 1:
+            return [
+                self.classify_file(o, r, paired_path=p, extended=extended)
+                for o, p, r in items
+            ]
+        with ThreadPoolExecutor(max_workers=jobs) as ex:
+            futs = [
+                ex.submit(self.classify_file, o, r, paired_path=p,
+                          extended=extended)
+                for o, p, r in items
+            ]
+            return [f.result() for f in futs]
+
+    # ------------------------------------------------------ out-of-core path
+    def _classify_files_cycled(self, items, extended: bool) -> list[dict]:
+        """Cycle-outer / sample-inner: table chunk j is uploaded once and
+        every sample's batches probe it, so N samples stream the table once
+        instead of N times; each sample then finishes on its own."""
+        t0 = time.time()
+        samples = []
+        for objects_path, paired_path, result_path in items:
+            with open(objects_path, "rb") as f:
+                data = f.read()
+            paired = paired_path is not None
+            if paired:
+                with open(paired_path, "rb") as f:
+                    data = merge_paired(data, f.read())
+            with maybe_phase("scan"):
+                _, ns, ne, ss, se, ln = native.scan_reads(data)
+            samples.append(dict(result=result_path, paired=paired,
+                                lengths=ln, io=self._native_io(data, ns, ne,
+                                                               ss, se)))
+        strategy = self._cycled_strategy([s["lengths"] for s in samples])
+        for s in samples:
+            s["specs"], s["packed"], s["pcs"] = self._cycled_prepare(
+                s["lengths"], s["io"][0], strategy, extended)
+            s["acc"] = [None] * len(s["specs"])
+        self._run_passes(strategy, [(s["packed"], s["acc"], s["pcs"])
+                                    for s in samples])
+        outs = []
+        for s in samples:
+            out = s["result"] + ".csv"
+            with open(out, "wb") as f:
+                f.write(self._header(extended))
+                for chunk in self._cycled_finish(
+                    s["specs"], s["acc"], strategy, s["lengths"],
+                    s["paired"], extended, s["io"][1],
+                ):
+                    f.write(chunk)
+            outs.append(out)
+        # samples interleave inside each chunk's pass, so a sample's own
+        # wall time is not separable: every sample reports the shared wall
+        # and the aggregate rate, flagged as such
+        dt = time.time() - t0
+        n_total = sum(len(s["lengths"]) for s in samples)
+        return [
+            {
+                "reads": len(s["lengths"]),
+                "seconds": dt,
+                "reads_per_min": int(n_total / dt * 60.0) if dt > 0 else 0,
+                "result": out,
+                "aggregate": True,
+            }
+            for s, out in zip(samples, outs)
+        ]
+
+    def _native_io(self, data, ns, ne, ss, se):
+        """(packer, formatter) of one in-memory input for the cycled path:
+        packer(idx, stride) packs reads idx; formatter(r0, r1, ...) formats
+        reads [r0, r1) from their scored scalars (and dense counts)."""
+
+        def packer(idx, stride):
+            return native.pack_batch(data, ss[idx], se[idx], stride)
+
+        def formatter(r0, r1, total, ib, b, sb, norm, counts):
+            with maybe_phase("format"):
+                return native.format_rows(
+                    data, ns[r0:r1], ne[r0:r1], total, ib, b, sb, norm,
+                    self.k, self.names, counts=counts,
+                    n_targets=self.n_targets if counts is not None else 0,
+                )
+
+        return packer, formatter
+
+    def _classify_cycled_native(self, data, ns, ne, ss, se, lengths, paired,
+                                extended, hit_stats=None):
+        """Cycle-outer / batch-inner classification of one input: every
+        batch is packed once, probed against each chunk in turn, its
+        labels or counts accumulated on the host (the reference's
+        swapDbParts + host-row merge, CuCLARK_hh.hh:1765-1772), then scored
+        and formatted in file order."""
+        packer, formatter = self._native_io(data, ns, ne, ss, se)
+        strategy = self._cycled_strategy([lengths])
+        specs, packed, pcs = self._cycled_prepare(lengths, packer, strategy,
+                                                  extended)
+        acc = [None] * len(specs)
+        self._run_passes(strategy, [(packed, acc, pcs)])
+        yield from self._cycled_finish(specs, acc, strategy, lengths, paired,
+                                       extended, formatter, hit_stats)
+
+    def _cycled_strategy(self, lengths_list) -> str:
+        """The accumulation strategy of a cycled run over its inputs:
+        labels cost 2-4 B per window per cycle, dense counts 4 (T+1) B per
+        read whatever the cycles, so labels win once the target count
+        passes the per-read window count (RefSeq-scale databases)."""
+        strategy = self.plan.cycle_strategy
+        if strategy not in ("auto", "labels", "counts"):
+            raise ValueError(f"unknown cycle_strategy {strategy!r}")
+        if strategy != "auto":
+            return strategy
+        max_stride = max((int(_stride_tiers(ln).max())
+                          for ln in lengths_list if len(ln)), default=0)
+        max_windows = max(max_stride - (self.k - 1), 0)
+        lab_bytes = (2 if self.n_targets < 65535 else 4) * len(
+            self.table_chunks)
+        return ("labels" if max_windows * lab_bytes < 4 * (self.n_targets + 1)
+                else "counts")
+
+    def _cycled_prepare(self, lengths, packer, strategy, extended):
+        """Plan and pack one input's batches for the passes: (specs
+        [(idx, stride, r_pad)], packed batches, probe_cols), the reads
+        length-bucketed over the whole input.  Where a batch makes a dense
+        count matrix (the counts strategy, an extended finish) its rows are
+        capped to DENSE_COUNTS_BYTES."""
+        max_reads = self.plan.max_reads
+        if strategy == "counts" or extended:
+            max_reads = min(max_reads, max(
+                DENSE_COUNTS_BYTES // (4 * (self.n_targets + 1)), 1))
+        lengths = np.asarray(lengths)
+        specs = self._window_specs(_stride_tiers(lengths), max_reads)
+        packed, pcs = [], []
+        for idx, stride, r_pad in specs:
+            with maybe_phase("pack"):
+                words, vwords = packer(idx, stride)
+                packed.append(_pad_batch(words, vwords, r_pad))
+            pcs.append(self._probe_cols(lengths[idx].max(initial=1), stride))
+        return specs, packed, pcs
+
+    def _run_passes(self, strategy, inputs):
+        """One pass per table chunk over every input's batches; inputs are
+        (packed batches, accumulators, probe_cols) triples."""
+        if not any(packed for packed, _, _ in inputs):
+            return
+        n_passes, begin_pass, end_pass = self._cycle_passes(strategy)
+        for j in range(n_passes):
+            pass_fn = begin_pass(j)
+            try:
+                for packed, acc, pcs in inputs:
+                    self._cycled_accumulate(pass_fn, packed, acc, strategy,
+                                            pcs)
+            finally:
+                end_pass()
+
+    def _cycle_passes(self, strategy):
+        """(n_passes, begin_pass(j) -> batch step, end_pass) over the
+        table's chunks.
+
+        On a CUDA device a chunk streams to the card on a side stream
+        (_upload_chunk); the compute stream waits on the copy's event, and
+        record_stream keeps the caching allocator from handing the chunk's
+        memory to another upload while kernels still read it.  Chunk j+1
+        uploads in a worker thread while chunk j's batches probe (the
+        reference's swapDbParts overlaps its uploads the same way,
+        CuClarkDB.cu:776-815), so two chunks are resident at the peak,
+        which auto_db_cycles budgets for; CLARK_TPU_PREFETCH_CHUNKS=0 turns
+        the overlap off."""
+        dev = self.device
+        cuda = dev.type == "cuda"
+        chunks = self.table_chunks
+        n_passes = len(chunks)
+        sk, sl = self.stash
+        narrow = self.n_targets < 65535
+
+        def upload(j):
+            host = chunks[j]["slots"].view(np.int32)
+            if not cuda:
+                return torch.from_numpy(host), None
+            with maybe_phase("chunk_upload"):
+                return self._upload_chunk(host)
+
+        prefetch = (n_passes > 1 and
+                    os.environ.get("CLARK_TPU_PREFETCH_CHUNKS", "1") != "0")
+        pre: dict = {"j": None, "thread": None, "out": None}
+        # the current chunk lives in this cell, not in the returned step:
+        # end_pass clears it so chunk j is released before begin_pass(j+1)
+        # starts the upload of chunk j+2 (at most two chunks resident)
+        cur: dict = {"slots": None}
+
+        def begin_pass(j):
+            if pre["thread"] is not None and pre["j"] == j:
+                pre["thread"].join()
+                status, got = pre["out"]
+                pre["thread"] = pre["out"] = None
+                if status == "err":
+                    raise got
+            else:
+                got = upload(j)
+            if prefetch and j + 1 < n_passes:
+                def work(nj=j + 1):
+                    try:
+                        pre["out"] = ("ok", upload(nj))
+                    except BaseException as e:  # re-raised at the join
+                        pre["out"] = ("err", e)
+
+                pre["j"] = j + 1
+                pre["thread"] = threading.Thread(target=work, daemon=True)
+                pre["thread"].start()
+            slots, done = got
+            if cuda:
+                stream = torch.cuda.current_stream(dev)
+                stream.wait_event(done)
+                slots.record_stream(stream)
+            cur["slots"] = slots
+            start, use_stash = chunks[j]["start_row"], chunks[j]["use_stash"]
+            kw = dict(k=self.k, **self.table_meta)
+
+            if strategy == "labels":
+                def step(words, vwords, probe_cols=None):
+                    return device_pipeline.classify_batch_labels_chunk(
+                        cur["slots"], sk, sl, words, vwords, start,
+                        use_stash, narrow=narrow, probe_cols=probe_cols, **kw,
+                    )
+            else:
+                def step(words, vwords, probe_cols=None):
+                    return device_pipeline.classify_batch_counts_chunk(
+                        cur["slots"], sk, sl, words, vwords, start,
+                        use_stash, n_targets=self.n_targets,
+                        probe_cols=probe_cols, **kw,
+                    )
+            return step
+
+        def end_pass():
+            cur["slots"] = None
+
+        return n_passes, begin_pass, end_pass
+
+    def _upload_chunk(self, host: np.ndarray):
+        """Copy one host chunk to the card on the side stream, through two
+        pinned STAGING_SLICE_BYTES slices in turn (one fills while the
+        other copies); returns (the device tensor, the copy's event) once
+        the copy is done.  The lock makes concurrent classify calls on one
+        Classifier take turns with the slices."""
+        dev = self.device
+        flat = host.reshape(-1)
+        with self._upload_lock:
+            if self._staging is None:
+                self._copy_stream = torch.cuda.Stream(dev)
+                self._staging = [
+                    (torch.empty(STAGING_SLICE_BYTES // 4, dtype=torch.int32,
+                                 pin_memory=True), torch.cuda.Event())
+                    for _ in range(2)
+                ]
+            n = self._staging[0][0].numel()
+            with torch.cuda.stream(self._copy_stream):
+                slots = torch.empty(host.shape, dtype=torch.int32, device=dev)
+                dst = slots.view(-1)
+                for i, off in enumerate(range(0, flat.size, n)):
+                    buf, copied = self._staging[i % 2]
+                    copied.synchronize()  # the slice's last copy has drained
+                    part = flat[off : off + n]
+                    buf.numpy()[: part.size] = part
+                    dst[off : off + part.size].copy_(buf[: part.size],
+                                                     non_blocking=True)
+                    copied.record(self._copy_stream)
+                done = torch.cuda.Event()
+                done.record(self._copy_stream)
+            done.synchronize()  # both slices are free for the next upload
+        return slots, done
+
+    def _cycled_accumulate(self, step, packed_batches, acc, strategy, pcs):
+        """Run one pass's step over every packed batch and accumulate on
+        the host: a cycle's label grids are appended (they concatenate
+        along the window axis), counts add.  Dispatch runs in a worker
+        thread and the fetches overlap it."""
+        dev = self.device
+
+        def dispatch(item):
+            bi, (words, vwords) = item
+            with maybe_phase("dispatch"):
+                return bi, step(_to_dev(words, dev), _to_dev(vwords, dev),
+                                probe_cols=pcs[bi])
+
+        def fetch(item):
+            bi, out = item
+            with maybe_phase("device_wait"):
+                return bi, out.cpu().numpy()
+
+        entries = self._pipelined(enumerate(packed_batches), dispatch)
+        for bi, c in self._pipelined_pool(entries, fetch, workers=2, depth=2):
+            if strategy == "labels":
+                acc[bi] = [c] if acc[bi] is None else acc[bi] + [c]
+            elif acc[bi] is None:
+                acc[bi] = c
+            else:
+                acc[bi] += c
+
+    def _cycled_finish(self, specs, acc, strategy, lengths, paired, extended,
+                       formatter, hit_stats=None):
+        """Score the accumulated batches, scatter to file order and yield
+        the formatted CSV chunks.  Labels: one device top-2 (K3; K5 when
+        extended) over each batch's concatenated cycles.  Counts: the top-2
+        over the summed [R, T+1] counts on the host, as the JAX package's
+        read_results orders it (count desc, lowest target first)."""
+        n_reads = len(lengths)
+        norm_all = lengths - (NBN if paired else 0)
+        res_g = np.zeros((4, n_reads), np.int64)  # total, ibest, best, sbest
+        cnt_g = (np.zeros((n_reads, self.n_targets + 1), np.int32)
+                 if extended else None)
+        for (idx, _, _), got in zip(specs, acc):
+            nb = len(idx)
+            if strategy == "labels":
+                lab = got[0] if len(got) == 1 else np.concatenate(got, axis=1)
+                if lab.dtype == np.int16:  # u16 bits: widen as unsigned
+                    lab = lab.view(np.uint16)
+                lab = torch.from_numpy(lab.astype(np.int32)).to(self.device)
+                with torch.inference_mode():
+                    total, ib, b, sb, counts = (
+                        device_pipeline.score_from_labels(
+                            lab, n_targets=self.n_targets, extended=extended))
+                res_g[:, idx] = torch.stack(
+                    [total, ib, b, sb])[:, :nb].cpu().numpy()
+                if extended:
+                    cnt_g[idx] = counts[:nb].cpu().numpy()
+                continue
+            t = got[:nb, 1:]
+            best = t.max(axis=1) if t.shape[1] else np.zeros(nb, np.int32)
+            ib = t.argmax(axis=1) if t.shape[1] else np.zeros(nb, np.int64)
+            masked = t.copy()
+            if t.shape[1]:
+                masked[np.arange(nb), ib] = -1
+            res_g[0, idx] = t.sum(axis=1, dtype=np.int64)
+            res_g[1, idx] = np.where(best > 0, ib + 1, 0)
+            res_g[2, idx] = best
+            res_g[3, idx] = np.maximum(masked.max(axis=1, initial=0), 0)
+            if extended:
+                cnt_g[idx] = got[:nb]
+        if hit_stats is not None and extended:
+            hit_stats.update_counts(cnt_g)
+        CH = 1 << 16
+        for r0 in range(0, n_reads, CH):
+            r1 = min(r0 + CH, n_reads)
+            yield formatter(r0, r1, *res_g[:, r0:r1], norm_all[r0:r1],
+                            cnt_g[r0:r1] if extended else None)
 
     def _probe_cols(self, max_len, stride: int) -> int:
         """Probed-window count for a batch whose longest read is max_len at
@@ -549,9 +1063,6 @@ class Classifier:
                            pc, max_w)
                 wid += 1
 
-        def to_dev(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(a.view(np.int64)).to(dev)
-
         def dispatch(item):
             if item[0] == "d":
                 _, r0, r1, stride, r_cap = item
@@ -568,7 +1079,8 @@ class Classifier:
                 words, vwords = _pad_batch(words, vwords, r_pad)
             with maybe_phase("dispatch"):
                 total, ib, b, sb, extra = self.batch_fn(
-                    to_dev(words), to_dev(vwords), extended=ext_mode,
+                    _to_dev(words, dev), _to_dev(vwords, dev),
+                    extended=ext_mode,
                     probe_cols=pc,
                 )
                 return meta, torch.stack([total, ib, b, sb]), extra

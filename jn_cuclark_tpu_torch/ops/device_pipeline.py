@@ -1,10 +1,11 @@
-"""Device classification step of the resident path.
+"""Device classification step.
 
 windows-from-packed-words + Jellyfish canonicalization (K1) -> radix-table
-probe (K2) -> per-read scoring (K3 top-2; extended output: K4 sorted label
-grid + top-2, or K5 dense counts + top-2), reproducing exactly the k-mer set the
-reference counts (all length-k windows of valid chars within a read,
-CuClarkDB.cu:1042-1117).  On CUDA tensors each step is a hand-written
+probe (K2; K8 against the dense two-plane table, K7 against one row chunk
+when the table is streamed in cycles) -> per-read scoring (K3 top-2;
+extended output: K4 sorted label grid + top-2, or K5 dense counts + top-2),
+reproducing exactly the k-mer set the reference counts (all length-k
+windows of valid chars within a read, CuClarkDB.cu:1042-1117).  On CUDA tensors each step is a hand-written
 kernel (ops/kernels/classify.cu); on CPU tensors each runs its plain-PyTorch
 twin.  The glue between them (the miss mask, reshapes) is plain torch.
 """
@@ -112,6 +113,15 @@ def score_from_labels(lab, *, n_targets: int, extended=False):
     return total, ib, b, sb, extra
 
 
+def _masked(q, lab):
+    """lab [R*W] -> [R, W] with the invalid windows' labels zeroed: the
+    EMPTY stash padding "matches" an invalid window with label 0, and a
+    valid canonical value is never EMPTY (see window_canonicals), so the
+    miss mask is recomputed from q."""
+    R, W = q.shape
+    return torch.where(q.view(-1) != bits.EMPTY, lab, 0).view(R, W)
+
+
 def classify_batch(
     table: radix_table.DeviceTable, words, vwords, *, k: int, n_targets: int,
     extended=False, probe_cols: int | None = None,
@@ -121,10 +131,62 @@ def classify_batch(
     `words`, which must be the table's."""
     with torch.inference_mode():
         q = window_canonicals(words, vwords, k, probe_cols)
-        R, W = q.shape
-        lab = radix_table.probe(table, q.view(-1))
-        # the EMPTY stash padding "matches" an invalid window with label 0,
-        # and a valid canonical value is never EMPTY (see window_canonicals),
-        # so the miss mask is recomputed from q
-        lab = torch.where(q.view(-1) != bits.EMPTY, lab, 0).view(R, W)
+        lab = _masked(q, radix_table.probe(table, q.view(-1)))
         return score_from_labels(lab, n_targets=n_targets, extended=extended)
+
+
+def classify_batch_dense(
+    table: radix_table.DeviceDenseTable, words, vwords, *, k: int,
+    n_targets: int, extended=False, probe_cols: int | None = None,
+):
+    """classify_batch against the dense two-plane table (K1 -> K8 -> miss
+    mask -> score_from_labels): identical results, used where the standard
+    table exceeds the device budget but the dense one fits."""
+    with torch.inference_mode():
+        q = window_canonicals(words, vwords, k, probe_cols)
+        lab = _masked(q, radix_table.probe_dense(table, q.view(-1)))
+        return score_from_labels(lab, n_targets=n_targets, extended=extended)
+
+
+def _chunk_labels(slots_blk, stash_keys, stash_labels, words, vwords,
+                  start_row, use_stash, k, m1, lb, probe_cols):
+    q = window_canonicals(words, vwords, k, probe_cols)
+    lab = radix_table.probe_chunk(slots_blk, stash_keys, stash_labels,
+                                  q.view(-1), start_row, m1=m1, lb=lb,
+                                  use_stash=use_stash)
+    return _masked(q, lab)
+
+
+def classify_batch_counts_chunk(
+    slots_blk, stash_keys, stash_labels, words, vwords, start_row: int,
+    use_stash: bool, *, k: int, m1: int, lb: int, n_targets: int,
+    probe_cols: int | None = None,
+):
+    """Out-of-core cycle step: per-read counts [R, T+1] int32 against ONE
+    table chunk (K1 -> K7 -> miss mask -> K5's counts; its top-2 is not
+    used).  Chunks hold disjoint rows, so counts add across cycles (the
+    reference's swapDbParts + host-row merge, CuClarkDB.cu:776-815,
+    931-948)."""
+    with torch.inference_mode():
+        lab = _chunk_labels(slots_blk, stash_keys, stash_labels, words,
+                            vwords, start_row, use_stash, k, m1, lb,
+                            probe_cols)
+        return score.counts_top2(lab, n_targets)[0]
+
+
+def classify_batch_labels_chunk(
+    slots_blk, stash_keys, stash_labels, words, vwords, start_row: int,
+    use_stash: bool, *, k: int, m1: int, lb: int, narrow: bool,
+    probe_cols: int | None = None,
+):
+    """Out-of-core cycle step returning the per-window labels [R, W]
+    (label+1, 0 = miss) against ONE table chunk (K1 -> K7 -> miss mask).
+    A window matches in at most one chunk, so the cycles' grids
+    concatenate along the window axis and one top-2 over [R, cycles*W]
+    scores them.  With `narrow` (n_targets < 65,535) the grid is u16 on an
+    int16 carrier: widen it as unsigned."""
+    with torch.inference_mode():
+        lab = _chunk_labels(slots_blk, stash_keys, stash_labels, words,
+                            vwords, start_row, use_stash, k, m1, lb,
+                            probe_cols)
+        return score.u16_bits(lab) if narrow else lab

@@ -1,6 +1,6 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-`classify.cu` (K1-K5, the classify path) and `aggregate.cu` (K6, the DB
+`classify.cu` (K1-K5, K7, K8, the classify path) and `aggregate.cu` (K6, the DB
 build) are each compiled by `nvcc` for `sm_90a` into a shared library with
 a plain C interface at first use (utils/build.py) and bound with ctypes:
 pointers come from `tensor.data_ptr()` and the stream from torch's current
@@ -13,7 +13,8 @@ outputs with `torch.empty`, launches, raises if the launch was refused, and
 adds one to its entry of `LAUNCHES`, which shows that a run went through the
 kernel.  Nothing falls back to the plain-PyTorch twins: those live beside
 the public functions (device_pipeline.window_canonicals_plain,
-radix_table.probe_plain, score.top2_from_labels_plain, score.sort_top2_plain,
+radix_table.probe_plain, probe_chunk_plain, probe_dense_plain,
+score.top2_from_labels_plain, score.sort_top2_plain,
 score.counts_from_hits_plain + read_results_plain,
 db.device_build.aggregate_device_plain) and run only for CPU tensors.
 """
@@ -38,7 +39,8 @@ SOURCES = {
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 
 LAUNCHES = {"window_canonicals": 0, "probe": 0, "top2": 0, "sort_top2": 0,
-            "counts_top2": 0, "aggregate": 0}
+            "counts_top2": 0, "aggregate": 0, "probe_chunk": 0,
+            "probe_dense": 0}
 _count_lock = threading.Lock()
 _libs: dict = {}
 _load_lock = threading.Lock()
@@ -86,6 +88,10 @@ def _bind(name: str, lib):
         "classify": {
             "launch_window_canonicals": [p, p, p, i64, i32, i32, i32, i32, p],
             "launch_probe": [p, p, p, p, p, i64, i32, i32, i32, p],
+            "launch_probe_chunk": [p, p, p, p, p, i64, i32, i32, i32, i64,
+                                   i64, i32, p],
+            "launch_probe_dense": [p, p, p, p, p, p, i64, i32, i32, i32, i32,
+                                   p],
             "launch_top2": [p, i64, i64, p, p, p, p, p, p],
             "launch_sort_top2": [p, i64, i64, p, p, p, p, p, p, p],
             "launch_counts_top2": [p, i64, i64, i32, p, p, p, p, p, p, p],
@@ -170,22 +176,81 @@ def probe(slots: torch.Tensor, stash_keys: torch.Tensor,
     """K2: label+1 per query q [Q] int64 (0 = miss) against the radix table
     slots [2^m1, 2C] int32 (u32 halves) and its 64-entry stash."""
     dev = q.device
-    _check("slots", slots, torch.int32, 2, dev)
-    _check("stash_keys", stash_keys, torch.int64, 1, dev)
-    _check("stash_labels", stash_labels, torch.int32, 1, dev)
+    _check_rows("slots", slots, m1, lb, dev)
+    _check_stash(stash_keys, stash_labels, dev)
     _check("q", q, torch.int64, 1, dev)
-    n1, c2 = slots.shape
-    if not (1 <= m1 <= 63 and n1 == 1 << m1 and c2 % 2 == 0 and c2 > 0):
+    if slots.shape[0] != 1 << m1:
         raise ValueError(f"slots shape {tuple(slots.shape)} does not match m1={m1}")
-    if not 0 <= lb < min(m1, 32):
-        raise ValueError(f"label bits lb={lb} must be below min(m1, 32)")
-    if stash_keys.shape != (STASH_CAP,) or stash_labels.shape != (STASH_CAP,):
-        raise ValueError(f"the stash must hold {STASH_CAP} entries")
     lib = load()
     out = torch.empty(q.shape[0], dtype=torch.int32, device=dev)
     _launch(lib, lib.launch_probe, "probe", dev,
             slots.data_ptr(), stash_keys.data_ptr(), stash_labels.data_ptr(),
-            q.data_ptr(), out.data_ptr(), q.shape[0], c2 // 2, m1, lb)
+            q.data_ptr(), out.data_ptr(), q.shape[0], slots.shape[1] // 2,
+            m1, lb)
+    return out
+
+
+def _check_stash(stash_keys, stash_labels, dev):
+    _check("stash_keys", stash_keys, torch.int64, 1, dev)
+    _check("stash_labels", stash_labels, torch.int32, 1, dev)
+    if stash_keys.shape != (STASH_CAP,) or stash_labels.shape != (STASH_CAP,):
+        raise ValueError(f"the stash must hold {STASH_CAP} entries")
+
+
+def _check_rows(name: str, slots: torch.Tensor, m: int, lb: int, dev):
+    _check(name, slots, torch.int32, 2, dev)
+    if not (1 <= m <= 63 and slots.shape[1] % 2 == 0 and slots.shape[1] > 0):
+        raise ValueError(f"{name} shape {tuple(slots.shape)} does not match "
+                         f"m={m}")
+    if not 0 <= lb < min(m, 32):
+        raise ValueError(f"label bits lb={lb} must be below min({m}, 32)")
+
+
+def probe_chunk(slots: torch.Tensor, stash_keys: torch.Tensor,
+                stash_labels: torch.Tensor, q: torch.Tensor, start_row: int,
+                m1: int, lb: int, use_stash: bool) -> torch.Tensor:
+    """K7: label+1 per query q [Q] int64 against one row chunk slots
+    [rows_per, 2C] int32 holding rows start_row.. of a 2^m1-row table; a
+    query bucketed outside the chunk gets 0, and the 64-entry stash counts
+    only where use_stash is set."""
+    dev = q.device
+    _check_rows("slots", slots, m1, lb, dev)
+    _check_stash(stash_keys, stash_labels, dev)
+    _check("q", q, torch.int64, 1, dev)
+    rows_per = slots.shape[0]
+    if not (rows_per >= 1 and 0 <= start_row < 1 << m1):
+        raise ValueError(f"chunk of {rows_per} rows at {start_row} is not in "
+                         f"a table of 2^{m1} rows")
+    lib = load()
+    out = torch.empty(q.shape[0], dtype=torch.int32, device=dev)
+    _launch(lib, lib.launch_probe_chunk, "probe_chunk", dev,
+            slots.data_ptr(), stash_keys.data_ptr(), stash_labels.data_ptr(),
+            q.data_ptr(), out.data_ptr(), q.shape[0], slots.shape[1] // 2,
+            m1, lb, start_row, rows_per, 1 if use_stash else 0)
+    return out
+
+
+def probe_dense(slots1: torch.Tensor, slots2: torch.Tensor,
+                stash_keys: torch.Tensor, stash_labels: torch.Tensor,
+                q: torch.Tensor, m1: int, m2: int, lb: int) -> torch.Tensor:
+    """K8: label+1 per query q [Q] int64 (0 = miss) against the dense
+    two-plane table: slots1 [2^m1, 2C] and slots2 [2^m2, 2C] int32 (u32
+    halves) and its 64-entry stash."""
+    dev = q.device
+    _check_rows("slots1", slots1, m1, lb, dev)
+    _check_rows("slots2", slots2, m2, lb, dev)
+    _check_stash(stash_keys, stash_labels, dev)
+    _check("q", q, torch.int64, 1, dev)
+    if (slots1.shape[0] != 1 << m1 or slots2.shape[0] != 1 << m2
+            or slots1.shape[1] != slots2.shape[1]):
+        raise ValueError(f"planes {tuple(slots1.shape)}/{tuple(slots2.shape)} "
+                         f"do not match m1={m1}, m2={m2}")
+    lib = load()
+    out = torch.empty(q.shape[0], dtype=torch.int32, device=dev)
+    _launch(lib, lib.launch_probe_dense, "probe_dense", dev,
+            slots1.data_ptr(), slots2.data_ptr(), stash_keys.data_ptr(),
+            stash_labels.data_ptr(), q.data_ptr(), out.data_ptr(), q.shape[0],
+            slots1.shape[1] // 2, m1, m2, lb)
     return out
 
 

@@ -1,4 +1,4 @@
-// Hand-written Hopper (sm_90a) kernels of the resident classify path.
+// Hand-written Hopper (sm_90a) kernels of the classify path.
 //
 // Replaces the jitted XLA device functions of the JAX package
 // (jn_cuclark_tpu/ops/device_pipeline.py, radix_table.py, score.py) and the
@@ -13,6 +13,8 @@
 //                         "sorted"): K3 plus each read's sorted label row
 //   K5 counts_top2        score.py:17 counts_from_hits + :85 read_results
 //                         (device_pipeline.py:159 score_from_labels(True))
+//   K7 probe_chunk        radix_table.py:411 probe_chunk (out-of-core cycling)
+//   K8 probe_dense        radix_table.py:602 probe_dense (two-plane table)
 //
 // u64 values arrive as int64 bit patterns and u32 values as int32 bit
 // patterns; the kernels read them as unsigned.  Each launcher is a plain C
@@ -32,6 +34,7 @@ typedef unsigned int u32;
 
 #define EMPTY64 0xFFFFFFFFFFFFFFFFull
 #define MIX1 0x9E3779B97F4A7C15ull  // 2^64 / golden ratio, odd -> bijective
+#define MIX2 0xC2B2AE3D27D4EB4Full  // the dense table's plane-2 mix, odd
 #define STASH_CAP 64
 
 // ---------------------------------------------------------------- K1
@@ -89,7 +92,53 @@ __global__ void window_canonicals_kernel(const u64* __restrict__ words,
 // C = 128) at a random bucket of a table far larger than L2.  One warp per
 // query: lane j reads lo/hi words j, j+32, ... so each half-row is read as
 // coalesced 128 B segments; the warp reduces the max label with shuffles.
-// The 64-entry stash is staged in shared memory once per block.
+// The 64-entry stash is staged in shared memory once per block.  K7 and K8
+// below share these pieces.
+
+// Stage the stash in shared memory (all threads of the block).
+__device__ __forceinline__ void load_stash(const u64* __restrict__ stash_keys,
+                                           const int* __restrict__ stash_labels,
+                                           u64* sk, int* sl) {
+  for (int j = threadIdx.x; j < STASH_CAP; j += blockDim.x) {
+    sk[j] = stash_keys[j];
+    sl[j] = stash_labels[j];
+  }
+  __syncthreads();
+}
+
+// This lane's largest hit label in one row for a query of quotient qlow
+// (0 = none).  hit <=> slot == (qlow << lb) | label: x_hi == 0 and
+// x_lo < 2^lb, tested as "no bit at or above lb set".
+__device__ __forceinline__ int scan_row(const u32* __restrict__ row, int C,
+                                        u64 qlow, int lb, int lane) {
+  u64 t = qlow << lb;
+  u32 t_lo = (u32)t, t_hi = (u32)(t >> 32);
+  u32 above = ~((1u << lb) - 1);
+  int best = 0;
+  for (int j = lane; j < C; j += 32) {
+    u32 xl = row[j] ^ t_lo;
+    u32 xh = row[C + j] ^ t_hi;
+    if (xh == 0 && (xl & above) == 0) best = max(best, (int)xl);
+  }
+  return best;
+}
+
+// This lane's share of the stash compare; EMPTY stash padding carries
+// label 0, so it never raises the max.
+__device__ __forceinline__ int scan_stash(const u64* sk, const int* sl, u64 x,
+                                          int lane) {
+  int best = 0;
+  for (int j = lane; j < STASH_CAP; j += 32)
+    if (sk[j] == x) best = max(best, sl[j]);
+  return best;
+}
+
+__device__ __forceinline__ int warp_max(int v) {
+  for (int o = 16; o; o >>= 1)
+    v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 __global__ void probe_kernel(const u32* __restrict__ slots,
                              const u64* __restrict__ stash_keys,
                              const int* __restrict__ stash_labels,
@@ -97,11 +146,7 @@ __global__ void probe_kernel(const u32* __restrict__ slots,
                              long long Q, int C, int m1, int lb) {
   __shared__ u64 sk[STASH_CAP];
   __shared__ int sl[STASH_CAP];
-  for (int j = threadIdx.x; j < STASH_CAP; j += blockDim.x) {
-    sk[j] = stash_keys[j];
-    sl[j] = stash_labels[j];
-  }
-  __syncthreads();
+  load_stash(stash_keys, stash_labels, sk, sl);
   int lane = threadIdx.x & 31;
   long long qi = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
   if (qi >= Q) return;  // qi is uniform across the warp
@@ -110,23 +155,77 @@ __global__ void probe_kernel(const u32* __restrict__ slots,
   u64 mixed = x * MIX1;  // wraps mod 2^64
   u64 b = mixed >> (64 - m1);
   u64 qlow = mixed & ((1ull << (64 - m1)) - 1);
-  u64 t = qlow << lb;
-  u32 t_lo = (u32)t, t_hi = (u32)(t >> 32);
-  // hit <=> slot == (qlow << lb) | label: x_hi == 0 and x_lo < 2^lb
-  u32 above = ~((1u << lb) - 1);
-  const u32* row = slots + b * (u64)(2 * C);
+  int best = scan_row(slots + b * (u64)(2 * C), C, qlow, lb, lane);
+  best = warp_max(max(best, scan_stash(sk, sl, x, lane)));
+  if (lane == 0) out[qi] = best;
+}
 
+// ---------------------------------------------------------------- K7
+// Replaces radix_table.py:411 probe_chunk (out-of-core cycling): K2 against
+// one chunk of rows [start_row, start_row + rows_per) of a 2^m1-row table.
+// lrow = bucket - start_row is taken in signed 64-bit: in u64 a bucket
+// below the chunk would wrap to a huge value.  A query bucketed outside
+// the chunk reads no row and gets 0; the stash counts only in the chunk
+// that carries it (use_stash), so each key is counted once over a pass of
+// all chunks.  rows_per need not be a power of two (chunk_table pads the
+// last chunk).  Bound like K2 by the rows it reads, here only for the
+// queries whose bucket lies in the chunk (about 1/cycles of them).
+__global__ void probe_chunk_kernel(const u32* __restrict__ slots,
+                                   const u64* __restrict__ stash_keys,
+                                   const int* __restrict__ stash_labels,
+                                   const u64* __restrict__ q,
+                                   int* __restrict__ out, long long Q, int C,
+                                   int m1, int lb, long long start_row,
+                                   long long rows_per, int use_stash) {
+  __shared__ u64 sk[STASH_CAP];
+  __shared__ int sl[STASH_CAP];
+  if (use_stash) load_stash(stash_keys, stash_labels, sk, sl);
+  int lane = threadIdx.x & 31;
+  long long qi = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
+  if (qi >= Q) return;
+
+  u64 x = q[qi];
+  u64 mixed = x * MIX1;
+  long long lrow = (long long)(mixed >> (64 - m1)) - start_row;  // m1 >= 1
+  u64 qlow = mixed & ((1ull << (64 - m1)) - 1);
   int best = 0;
-  for (int j = lane; j < C; j += 32) {
-    u32 xl = row[j] ^ t_lo;
-    u32 xh = row[C + j] ^ t_hi;
-    if (xh == 0 && (xl & above) == 0) best = max(best, (int)xl);
-  }
-  // EMPTY stash padding carries label 0, so it never raises the max
-  for (int j = lane; j < STASH_CAP; j += 32)
-    if (sk[j] == x) best = max(best, sl[j]);
-  for (int o = 16; o; o >>= 1)
-    best = max(best, __shfl_xor_sync(0xffffffffu, best, o));
+  if (lrow >= 0 && lrow < rows_per)  // uniform across the warp
+    best = scan_row(slots + (u64)lrow * (u64)(2 * C), C, qlow, lb, lane);
+  if (use_stash) best = max(best, scan_stash(sk, sl, x, lane));
+  best = warp_max(best);
+  if (lane == 0) out[qi] = best;
+}
+
+// ---------------------------------------------------------------- K8
+// Replaces radix_table.py:602 probe_dense: the two-plane dense table.  One
+// warp per query reads the plane-1 row at (q * MIX1) >> (64 - m1) and the
+// plane-2 row at (q * MIX2) >> (64 - m2), each with its own quotient, and
+// the shared-memory stash; a key lives in one plane or the stash, so the
+// answer is max(lab1, lab2, stash).  Plane 2 holds the ~0.5% of keys that
+// plane 1's buckets overflow, a small array that stays in L2, so the
+// DRAM-bound cost is plane 1's row reads, as K2's.
+__global__ void probe_dense_kernel(const u32* __restrict__ slots1,
+                                   const u32* __restrict__ slots2,
+                                   const u64* __restrict__ stash_keys,
+                                   const int* __restrict__ stash_labels,
+                                   const u64* __restrict__ q,
+                                   int* __restrict__ out, long long Q, int C,
+                                   int m1, int m2, int lb) {
+  __shared__ u64 sk[STASH_CAP];
+  __shared__ int sl[STASH_CAP];
+  load_stash(stash_keys, stash_labels, sk, sl);
+  int lane = threadIdx.x & 31;
+  long long qi = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
+  if (qi >= Q) return;
+
+  u64 x = q[qi];
+  u64 x1 = x * MIX1, x2 = x * MIX2;
+  u64 b1 = x1 >> (64 - m1), b2 = x2 >> (64 - m2);
+  int best = scan_row(slots1 + b1 * (u64)(2 * C), C,
+                      x1 & ((1ull << (64 - m1)) - 1), lb, lane);
+  best = max(best, scan_row(slots2 + b2 * (u64)(2 * C), C,
+                            x2 & ((1ull << (64 - m2)) - 1), lb, lane));
+  best = warp_max(max(best, scan_stash(sk, sl, x, lane)));
   if (lane == 0) out[qi] = best;
 }
 
@@ -406,6 +505,33 @@ int launch_probe(const void* slots, const void* stash_keys,
   probe_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
       (const u32*)slots, (const u64*)stash_keys, (const int*)stash_labels,
       (const u64*)q, (int*)out, Q, C, m1, lb);
+  return (int)cudaGetLastError();
+}
+
+int launch_probe_chunk(const void* slots, const void* stash_keys,
+                       const void* stash_labels, const void* q, void* out,
+                       long long Q, int C, int m1, int lb,
+                       long long start_row, long long rows_per, int use_stash,
+                       void* stream) {
+  if (Q == 0) return 0;
+  unsigned grid;
+  if (int rc = grid_for(Q * 32, 256, &grid)) return rc;
+  probe_chunk_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+      (const u32*)slots, (const u64*)stash_keys, (const int*)stash_labels,
+      (const u64*)q, (int*)out, Q, C, m1, lb, start_row, rows_per, use_stash);
+  return (int)cudaGetLastError();
+}
+
+int launch_probe_dense(const void* slots1, const void* slots2,
+                       const void* stash_keys, const void* stash_labels,
+                       const void* q, void* out, long long Q, int C, int m1,
+                       int m2, int lb, void* stream) {
+  if (Q == 0) return 0;
+  unsigned grid;
+  if (int rc = grid_for(Q * 32, 256, &grid)) return rc;
+  probe_dense_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+      (const u32*)slots1, (const u32*)slots2, (const u64*)stash_keys,
+      (const int*)stash_labels, (const u64*)q, (int*)out, Q, C, m1, m2, lb);
   return (int)cudaGetLastError();
 }
 

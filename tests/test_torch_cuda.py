@@ -6,11 +6,19 @@ Marked `cuda`: every test skips where torch.cuda.is_available() is false.
 On a GPU machine without jax (which tests/conftest.py imports), run
 `python -m pytest --noconftest tests/test_torch_cuda.py`."""
 
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+from jn_cuclark_tpu_torch import engine
+from jn_cuclark_tpu_torch.engine import Classifier
+from jn_cuclark_tpu_torch.io import dbformat
 from jn_cuclark_tpu_torch.ops import kernels, score
+from jn_cuclark_tpu_torch.params import Profile
+from jn_cuclark_tpu_torch.utils import native
 
 pytestmark = pytest.mark.cuda
 
@@ -24,10 +32,11 @@ def dev():
 
 def test_kernels_equal_their_twins(dev):
     kernels.reset_launches()
-    assert chip_smoke.check_kernels(dev) == 12 + 3 + 6 + 6 + 4 + 9
-    assert kernels.LAUNCHES == {"window_canonicals": 12, "probe": 3, "top2": 6,
+    assert chip_smoke.check_kernels(dev) == 12 + 3 + 6 + 6 + 4 + 9 + 21 + 3
+    assert kernels.LAUNCHES == {"window_canonicals": 15, "probe": 3, "top2": 6,
                                 "sort_top2": 6, "counts_top2": 4,
-                                "aggregate": 9}
+                                "aggregate": 9, "probe_chunk": 21,
+                                "probe_dense": 6}
 
 
 def test_goldens_through_the_kernels(dev, tmp_path):
@@ -54,6 +63,25 @@ def test_new_wrappers_reject_bad_input(dev):
     assert all(v == 0 for v in kernels.LAUNCHES.values())
 
 
+def test_chunk_and_dense_wrappers_reject_bad_input(dev):
+    kernels.reset_launches()
+    slots = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+    sk = torch.full((64,), -1, dtype=torch.int64, device=dev)
+    sl = torch.zeros(64, dtype=torch.int32, device=dev)
+    q = torch.zeros(5, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError):  # a chunk outside a 2^3-row table
+        kernels.probe_chunk(slots, sk, sl, q, 8, 3, 2, True)
+    with pytest.raises(ValueError):  # a stash of the wrong size
+        kernels.probe_chunk(slots, sk[:3], sl[:3], q, 0, 3, 2, True)
+    with pytest.raises(ValueError):  # plane 1 of 4 rows is not 2^3
+        kernels.probe_dense(slots, slots, sk, sl, q, 3, 2, 1)
+    with pytest.raises(TypeError):
+        kernels.probe_dense(slots, slots, sk, sl, q.int(), 2, 2, 1)
+    assert all(v == 0 for v in kernels.LAUNCHES.values())
+    assert kernels.probe_chunk(slots, sk, sl, q, 4, 3, 2, False).tolist() == [0] * 5
+    assert kernels.LAUNCHES["probe_chunk"] == 1
+
+
 def test_wrapper_rejects_bad_input(dev):
     kernels.reset_launches()
     with pytest.raises(TypeError):
@@ -65,3 +93,37 @@ def test_wrapper_rejects_bad_input(dev):
     assert kernels.LAUNCHES["top2"] == 0
     score.top2_from_labels(torch.ones((2, 3), dtype=torch.int32, device=dev))
     assert kernels.LAUNCHES["top2"] == 1
+
+
+def test_cycled_uploads_under_concurrent_calls(dev, tmp_path, monkeypatch):
+    """Chunks stream through the two pinned staging slices (4 KiB here, so
+    one chunk takes dozens of them) while two threads classify through one
+    cycled Classifier: every call writes the resident run's bytes."""
+    monkeypatch.setattr(engine, "STAGING_SLICE_BYTES", 4096)
+    k, T = 21, 8
+    rng = np.random.default_rng(9)
+    genome = chip_smoke.ACGT[rng.integers(0, 4, size=40_000)].tobytes()
+    keys = np.unique(native.extract_canonical(b">g\n" + genome + b"\n", k,
+                                              False, 1))
+    labels = rng.integers(0, T, size=len(keys)).astype(np.uint16)
+    prof = Profile(name="cyc", htsize=65521, light=False, default_k=k)
+    dbformat.write_db(str(tmp_path / prof.db_stem(k, T, 0)), prof, k, keys,
+                      labels)
+    (tmp_path / "targets.txt").write_text(
+        "".join(f"t{i}.fa {7000 + i}\n" for i in range(T)))
+    recs = []
+    for i in range(2000):
+        ln = int(rng.integers(50, 250))
+        p = int(rng.integers(0, len(genome) - ln))
+        s = (genome[p : p + ln] if i % 4
+             else chip_smoke.ACGT[rng.integers(0, 4, size=ln)].tobytes())
+        recs.append(b">c%d\n%s\n" % (i, s))
+    fa = b"".join(recs)
+    args = (str(tmp_path), str(tmp_path / "targets.txt"), prof, k)
+    want = b"".join(Classifier.load(*args, device=dev).classify_bytes(fa)[0])
+    clf = Classifier.load(*args, device=dev, db_cycles=3)
+    assert clf.table_chunks[0]["slots"].nbytes > 16 * 4096
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        got = list(ex.map(lambda _: b"".join(clf.classify_bytes(fa)[0]),
+                          range(6)))
+    assert got == [want] * 6

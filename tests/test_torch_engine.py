@@ -224,10 +224,21 @@ def test_cli_paired_and_extended_match_library(random_db, tmp_path, mode,
     (["--jobs", "2"], "A10"),
 ])
 def test_cli_rejects_modes_not_ported(random_db, tmp_path, flags, item):
+    """The mesh options (A9) raise; --db-cycles (A7) and --jobs (formerly
+    A10) are ported and write the resident library run's bytes."""
+    tmp, prof, _ = random_db
     db = _config(random_db, tmp_path)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cli.main(["classify", "-D", str(db), "-O", str(tmp_path / "reads.fa"),
-                  "-R", str(tmp_path / "x"), "--device", "cpu", *flags])
+    argv = ["classify", "-D", str(db), "-O", str(tmp_path / "reads.fa"),
+            "-R", str(tmp_path / "x"), "--device", "cpu", *flags]
+    if item == "A9":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            cli.main(argv)
+        return
+    assert cli.main(argv) == 0
+    clf = Classifier.load(str(db), str(db / "targets.txt"), prof, 9,
+                          device="cpu")
+    clf.classify_file(str(tmp_path / "reads.fa"), str(tmp_path / "lib"))
+    assert (tmp_path / "x.csv").read_bytes() == (tmp_path / "lib.csv").read_bytes()
 
 
 def test_library_rejects_modes_not_ported(random_db, tmp_path):
@@ -235,9 +246,15 @@ def test_library_rejects_modes_not_ported(random_db, tmp_path):
     db = tmp_path / "db"
     shutil.copytree(tmp, db)
     args = (str(db), str(db / "targets.txt"), prof, 9)
-    for kw, item in ((dict(db_cycles=3), "A7"), (dict(mesh=object()), "A9")):
-        with pytest.raises(NotImplementedError, match=item):
-            Classifier.load(*args, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="A9"):
+        Classifier.load(*args, device="cpu", mesh=object())
+    # out-of-core cycling (A7), formerly rejected here, now classifies: a
+    # cycled run writes the resident run's bytes
+    cycled = Classifier.load(*args, device="cpu", db_cycles=3)
+    assert cycled.db_cycles == 3 and cycled.table is None
+    resident = Classifier.load(*args, device="cpu")
+    assert (b"".join(cycled.classify_bytes(fa)[0])
+            == b"".join(resident.classify_bytes(fa)[0]))
     with pytest.raises(NotImplementedError, match="Do not port"):
         Classifier.load(*args, device="cpu", packed=False)
     # paired and extended runs, formerly rejected here (A6), now classify:

@@ -13,24 +13,42 @@ import torch
 
 import chip_smoke
 from jn_cuclark_tpu_torch.params import Profile
+from jn_cuclark_tpu_torch.utils import memory
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def test_phases_on_cpu(tmp_path):
+def test_phases_on_cpu(tmp_path, monkeypatch):
     dev = torch.device("cpu")
-    assert chip_smoke.check_kernels(dev) == 12 + 3 + 6 + 6 + 4 + 9
+    assert chip_smoke.check_kernels(dev) == 12 + 3 + 6 + 6 + 4 + 9 + 21 + 3
     assert chip_smoke.check_goldens(dev, str(tmp_path)) == 6
     assert chip_smoke.check_golden_dbs(dev, str(tmp_path)) == 3
     dense = chip_smoke.check_dense_targets(dev, str(tmp_path), n_reads=40)
     scale = tmp_path / "scale"
     scale.mkdir()
     prof = Profile(name="t", htsize=1048573, light=False, default_k=31)
+    # ~48k keys: the dense layout (2^12 rows) is smaller than the standard
+    # one (2^13), as at the config-2 shape
     m, launches, clf, fa, lens = chip_smoke.run_scale(
-        dev, str(scale), 3, 20_000, 1500, n_pairs=300, prof=prof
+        dev, str(scale), 3, 16_000, 1500, n_pairs=300, prof=prof
     )
     assert m["reads"] == 1500 and m["pairs"] == 300
-    assert m["db_keys"] > 55_000 and m["db_distinct_kmers"] >= m["db_keys"]
+    assert m["db_keys"] > 45_000 and m["db_distinct_kmers"] >= m["db_keys"]
+    # the auto-policy runs of phase 4b set limits of a few MB here
+    monkeypatch.setattr(memory, "HARD_FLOOR", 0)
+    ooc, dense_clf = chip_smoke.run_out_of_core(dev, str(scale), prof, clf,
+                                                fa, lens, launches)
+    assert (ooc["cycled counts"]["cycles"], ooc["cycled labels"]["strategy"],
+            ooc["dense"]["strategy"], ooc["auto dense"]["strategy"]) == (
+                4, "labels", "dense", "dense")
+    assert ooc["auto cycled"]["cycles"] >= 2
+    assert ooc["cycle-outer files"]["samples"] == 4
+    refseq = tmp_path / "refseq"
+    refseq.mkdir()
+    rs = chip_smoke.run_refseq(dev, str(refseq), launches, n_targets=400,
+                               glen=2000, n_reads=2000)
+    assert rs["refseq cycled"]["strategy"] == "labels"
+    assert rs["refseq dense"]["strategy"] == "dense"
     for path in ("classify", "extended", "paired"):
         assert set(m["phase_s"][path]) >= {"scan", "pack", "dispatch",
                                            "device_wait", "format"}
@@ -43,12 +61,17 @@ def test_phases_on_cpu(tmp_path):
     assert all(c == 0 for p in launches.values() for c in p.values())
     with pytest.raises(AssertionError, match="never launched"):
         chip_smoke.check_launches(launches)  # the CPU runs the twins
-    timing, shape = chip_smoke.time_kernels(dev, clf, fa, lens, str(scale), 3,
-                                            reps=1, dense_rows=8)
+    timing, shape = chip_smoke.time_kernels(dev, clf, dense_clf, fa, lens,
+                                            str(scale), 3, reps=1,
+                                            dense_rows=8)
     assert shape["stride"] == 256 and shape["windows"] == 224
     assert shape["partition_entries"] == 1 << 20
     assert set(timing) == set(chip_smoke.KERNELS) | {"counts_top2 T=65535"}
     assert all(t["max_abs_err"] == 0.0 for t in timing.values())
+    assert all(t["bound_ms"] > 0 and t["bound_by"] in ("bytes", "operations")
+               for t in timing.values())
+    assert {n for n, t in timing.items() if t["library_ms"] is not None} == {
+        "sort_top2", "counts_top2", "counts_top2 T=65535"}
 
 
 def test_extended_csv_less_counts_is_the_plain_csv():
