@@ -12,10 +12,13 @@ raises and exits non-zero before the result lines:
              libraries (nvcc, sm_90a), all at once, from the checkout's
              sources
   2 kernels  K1-K8 on the card against their plain-PyTorch twins on the
-             same inputs, exact equality (integers; tolerance 0); K7 across
+             same inputs, exact equality (integers; tolerance 0); K5 in its
+             three forms, at both sides of each form's edge; K7 across
              chunk edges, cycles 2-5 (padded last chunks), the stash on and
-             off, k = 32 keys and the u16 label grid of the labels
-             strategy; K8 with keys in plane 2 and the stash
+             off, k = 32 keys, slots whose hi half equals a missing query's,
+             a chunk every query falls in and ones none does, and the u16
+             label grid of the labels strategy; K8 with keys in plane 2 and
+             the stash
   3 goldens  classify the reference's golden reads on the card (single-end,
              --extended, paired): the six CSVs must be byte-equal to
              tests/golden; rebuild three golden DBs with device="cuda"
@@ -24,11 +27,11 @@ raises and exits non-zero before the result lines:
              must equal the same run on the CPU
   4 scale    the main paths at the shape of bench.py config 2: 16 random
              genomes x 3 Mbp, full profile (k=31).  `db build` twice (the
-             DB-build aggregate on the card, then on the host; the DBs must
-             be byte-equal), then, each after a warm-up run: 400,000 reads
-             of 100-250 bp (half drawn from the genomes, half random) plain
-             and --extended, and 100,000 pairs of 125 + 125 bp mates 200 bp
-             apart from genome 0.  Every genome read must be assigned its
+             default, which aggregates on the card, then device="host"; the
+             DBs must be byte-equal), then, each after a warm-up run:
+             400,000 reads of 100-250 bp (half drawn from the genomes, half
+             random) plain and --extended, and 100,000 pairs of 125 + 125 bp
+             mates 200 bp apart from genome 0.  Every genome read must be assigned its
              genome's taxid, every random read NA, every pair taxid 1000;
              the extended CSV less its 16 count columns must equal the
              plain one.  Kernel launch counts are reset just before each
@@ -48,7 +51,8 @@ raises and exits non-zero before the result lines:
              dense-forced, every read assigned right and the three CSVs
              byte-equal
   5 timing   each kernel and its twin at the shapes of those paths, with
-             its bound and a one-call PyTorch yardstick where one exists
+             its bound and a one-call PyTorch yardstick where one exists;
+             K7 against each chunk of the table's 4-cycle split
 
 The last two lines are the kernels' JSON record and the run's contract
 line {"ok": true, "device": {...}}.  With no CUDA device it exits 1 and
@@ -202,16 +206,30 @@ def k4_cases(seed: int = 0):
 
 
 def k5_cases(seed: int = 0):
-    """(label, lab [R, W] int32, T) on the CPU for the dense counts: ties,
-    T = 16, 1,000 and 65,535 (small R there: a row is 256 KiB)."""
+    """(label, lab [R, W] int32, T) on the CPU for the dense counts, across
+    K5's three forms (kernels.counts_form): ties and all-miss rows at both
+    sizes of T; T = 16, 1,000 and 65,535 (small R there: a row is 256 KiB);
+    T + 1 at the small form's edge (4,096) and past it (4,097); W = 1; W at
+    the large form's tile edge (4,096) and past it (4,097, the multi-pass
+    form); R not a multiple of the small form's reads per block."""
     rng = np.random.default_rng(seed)
     yield "ties T=9", torch.from_numpy(np.array(
         [[3, 3, 5, 5, 7, 0], [2, 2, 9, 9, 9, 1], [0, 0, 0, 0, 0, 0]],
         np.int32)), 9
-    for T, R, W in ((16, 4096, 224), (1000, 1024, 300), (65535, 64, 500)):
+    yield "ties T=65535", torch.from_numpy(np.array(
+        [[40000, 40000, 7, 7, 65535, 65535, 0], [3, 3, 3, 9, 9, 9, 1],
+         [0, 0, 0, 0, 0, 0, 0], [65535, 1, 65535, 1, 2, 2, 2]],
+        np.int32)), 65535
+    for label, T, R, W in (
+        ("T=16", 16, 4096, 224), ("T=1000", 1000, 1024, 300),
+        ("T=65535", 65535, 64, 500), ("T+1=4096", 4095, 37, 300),
+        ("T+1=4097", 4096, 37, 300), ("W=1 T=16", 16, 13, 1),
+        ("W=1 T=65535", 65535, 13, 1), ("W=4096 T=65535", 65535, 5, 4096),
+        ("W=4097 T=65535", 65535, 5, 4097), ("ragged R T=16", 16, 4093, 224),
+    ):
         lab = rng.integers(0, T + 1, size=(R, W)).astype(np.int32)
         lab[::9] = 0
-        yield f"T={T}", torch.from_numpy(lab), T
+        yield label, torch.from_numpy(lab), T
 
 
 def occurrences(rng, k: int, n: int):
@@ -255,19 +273,65 @@ def keys_in_rows(rng, rows, m1: int) -> np.ndarray:
         return mixed * radix_table._MIX1_INV
 
 
+def forge_hi_collisions(table, q: np.ndarray) -> int:
+    """For each query of q whose row has a free slot, write there a slot
+    whose hi half equals the query's t_hi while its lo half differs from
+    t_lo in a bit at or above lb (bit lb, or bit 31): a miss that only the
+    lo word tells apart.  Returns the number of slots written."""
+    c, lb, m1 = table.slot_width, table.lb, table.m1
+    with np.errstate(over="ignore"):
+        mixed = q * radix_table._MIX1
+    rows = (mixed >> np.uint64(64 - m1)).astype(np.int64)
+    t = (mixed & np.uint64((1 << (64 - m1)) - 1)) << np.uint64(lb)
+    n = 0
+    for i, (r, ti) in enumerate(zip(rows, t)):
+        free = np.nonzero(table.slots[r, c:] == radix_table.EMPTY32)[0]
+        if len(free):
+            flip = 1 << (lb if i % 2 else 31)
+            table.slots[r, free[0]] = np.uint32((int(ti) & 0xFFFFFFFF) ^ flip
+                                                ^ (i % 7))
+            table.slots[r, c + free[0]] = np.uint32(int(ti) >> 32)
+            n += 1
+    return n
+
+
 def k7_cases(seed: int = 0):
     """(label, (RadixTable, q, cycles, n_keys, labels1)) on the host for the
     chunk probe, q starting with the n_keys stored keys: a
     forced stash at cycles = 3 (2^m1 is no multiple of 3, so the last chunk
     is padded), k = 32 keys (bit 63 set on half), lb = 17 at cycles = 5
-    and k = 27 keys at cycles = 2.  Every chunk's first and last row holds
-    a stored key; queries are the stored keys, misses and EMPTY."""
+    and k = 27 keys in rows of 6 slots (no multiple of K7's 4-word loads)
+    at cycles = 2.  Every chunk's first and last row holds
+    a stored key; queries are the stored keys, misses and EMPTY.  Then:
+    slots whose hi half equals a missing query's while the lo half has a
+    bit at or above lb set (cycles = 2), and a ragged query list that falls
+    wholly in chunk 0 of 4 (every query there, none in chunks 1-3)."""
     rng = np.random.default_rng(seed)
+    yield from _k7_split_cases(rng)
+    keys = np.unique(rng.integers(0, (1 << 64) - 2, size=60_000,
+                                  dtype=np.uint64))
+    labels1 = rng.integers(1, 301, size=len(keys)).astype(np.int32)
+    table = radix_table.build(keys, labels1)
+    miss = rng.integers(0, (1 << 64) - 2, size=20_000, dtype=np.uint64)
+    if forge_hi_collisions(table, miss) < 10_000:
+        raise AssertionError("K7 hi collisions: too few free slots")
+    yield "hi collisions cycles=2", (table, np.concatenate([keys, miss]), 2,
+                                     len(keys), labels1)
+    rows_per = -(-(1 << table.m1) // 4)
+    in0 = np.nonzero(radix_table._mix_np(keys, table.m1) < rows_per)[0][:2_000]
+    q = np.concatenate([keys[in0], keys_in_rows(
+        rng, rng.integers(0, rows_per, size=2_099), table.m1)])
+    yield "all in chunk 0 of 4, Q=4,099", (table, q, 4, len(in0),
+                                          labels1[in0])
+
+
+def _k7_split_cases(rng):
+    """k7_cases' tables split at chunk edges (see there)."""
     for label, n, maxlab, kbits, cycles, kw in (
         ("forced stash cycles=3", 20_000, 40, 64, 3, dict(c=4, load=16.0)),
         ("k=32 cycles=4", 200_000, 1000, 64, 4, {}),
         ("lb=17 cycles=5", 300_000, 65535, 64, 5, {}),
-        ("k=27 cycles=2", 100_000, 300, 54, 2, {}),
+        ("k=27 c=6 cycles=2", 100_000, 300, 54, 2, dict(c=6)),
     ):
         keys = np.unique(rng.integers(0, (1 << kbits) - 2, size=n,
                                       dtype=np.uint64))
@@ -283,7 +347,8 @@ def k7_cases(seed: int = 0):
         table = radix_table.build(keys, labels1, **kw)
         if table.m1 != m1:
             raise AssertionError(f"K7 {label}: m1 moved with the edge keys")
-        if kw and not (table.stash_keys != radix_table.EMPTY).any():
+        if "stash" in label and not (table.stash_keys
+                                     != radix_table.EMPTY).any():
             raise AssertionError(f"K7 {label}: the stash is empty")
         q = np.concatenate([
             keys, rng.integers(0, (1 << 64) - 2, size=20_000, dtype=np.uint64),
@@ -704,16 +769,18 @@ def run_scale(dev, tmp: str, n_genomes: int, glen: int, n_reads: int,
     targets = parse_targets(os.path.join(tmp, "targets.txt"))
     m["setup_genomes_s"] = time.perf_counter() - t
 
+    # the build's default device is cuda: on the card the default runs
+    dev_kw = {} if dev.type == "cuda" else dict(device=dev)
     with profiling.collect() as ph:
         db, m["db_build_device_s"] = _path(
             launches, "db build",
-            lambda: builder.build_database(targets, tmp, prof, k, device=dev))
+            lambda: builder.build_database(targets, tmp, prof, k, **dev_kw))
     m["db_build_device_phase_s"] = dict(ph.totals)
     host_dir = os.path.join(tmp, "host_db")
     os.makedirs(host_dir)
     with profiling.collect() as ph:
         t = time.perf_counter()
-        builder.build_database(targets, host_dir, prof, k)  # native aggregate
+        builder.build_database(targets, host_dir, prof, k, device="host")
         m["db_build_host_s"] = time.perf_counter() - t
     m["db_build_host_phase_s"] = dict(ph.totals)
     _same_db(tmp, host_dir, prof.db_stem(k, n_genomes, 0, prof.default_gap))
@@ -1010,6 +1077,23 @@ def _distinct(rows: torch.Tensor) -> int:
     return int(torch.unique(rows).numel())
 
 
+def _probe_reads(slots: torch.Tensor, rows: torch.Tensor, qlow: torch.Tensor,
+                 lb: int) -> dict:
+    """What a probe of queries (bucket `rows`, quotient `qlow`) must read of
+    the table: the hi half (C x 4 B) of each distinct row they touch, and
+    one 32-B sector of lo words for each query whose hi half matched a
+    slot's (a lo word decides only there)."""
+    c = slots.shape[1] // 2
+    matched = 0
+    for s in range(0, rows.shape[0], 1 << 20):
+        t_hi = bits.lsr(qlow[s : s + (1 << 20)] << lb, 32).to(torch.int32)
+        hi = slots[rows[s : s + (1 << 20)], c:]
+        matched += int((hi == t_hi[:, None]).any(dim=1).sum())
+    distinct = _distinct(rows)
+    return dict(queries=int(rows.shape[0]), distinct_rows=distinct,
+                hi_matched=matched, bytes=distinct * c * 4 + 32 * matched)
+
+
 def _bound(nbytes: int, ops: int):
     """(least milliseconds the card could take, what bounds it)."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1033,6 +1117,27 @@ def _ms(fn, dev, reps: int) -> float:
     end.record()
     torch.cuda.synchronize(dev)
     return start.elapsed_time(end) / reps
+
+
+def _device_split(fn, dev, reps: int) -> dict:
+    """Device milliseconds per call of each kernel that fn launches, from
+    torch.profiler's CUDA trace (empty where the trace shows none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(dev)
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        if us > 0:
+            out[e.key.split("(")[0]] = us / reps / 1e3
+    return out
 
 
 def build_partition(tmp: str, n_genomes: int, k: int):
@@ -1100,27 +1205,41 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
 
     qf = q.view(-1)
     stash_bytes = _nbytes(tbl.stash_keys, tbl.stash_labels)
-    row_bytes = 2 * tbl.c * 4
-    # K7: chunk 0 (it carries the stash) of the 4-cycle split of the table
+    # the 4-cycle split of the table: K7 against each chunk (chunk 0, which
+    # carries the stash, is the one recorded), on the queries bucketed there
     rows_per = tbl.slots.shape[0] // 4
-    chunk = tbl.slots[:rows_per]
-    b = radix_table._mix(qf, radix_table._MIX1_I64, tbl.m1)[0]
-    in_chunk = b < rows_per
+    b, qlow = radix_table._mix(qf, radix_table._MIX1_I64, tbl.m1)
+    reads = {"probe": _probe_reads(tbl.slots, b, qlow, tbl.lb)}
+    for i in range(4):
+        sel = (b >= i * rows_per) & (b < (i + 1) * rows_per)
+        reads[f"probe_chunk {i}"] = _probe_reads(tbl.slots, b[sel],
+                                                 qlow[sel], tbl.lb)
     # K8: the config-2 table in the dense layout
     dt = dense.table
-    b1 = radix_table._mix(qf, radix_table._MIX1_I64, dt.m1)[0]
-    b2 = radix_table._mix(qf, radix_table._MIX2_I64, dt.m2)[0]
+    b1, qlow1 = radix_table._mix(qf, radix_table._MIX1_I64, dt.m1)
+    b2, qlow2 = radix_table._mix(qf, radix_table._MIX2_I64, dt.m2)
+    reads["probe_dense plane 1"] = _probe_reads(dt.slots1, b1, qlow1, dt.lb)
+    reads["probe_dense plane 2"] = _probe_reads(dt.slots2, b2, qlow2, dt.lb)
     bins = {T: flat_bins(lab, T), 65535: flat_bins(lab_big, 65535)}
     Q = qf.shape[0]
     n_part = part[0].shape[0]
 
+    def chunk_fns(i):
+        args = (tbl.slots[i * rows_per : (i + 1) * rows_per], tbl.stash_keys,
+                tbl.stash_labels, qf, i * rows_per)
+        kw = dict(m1=tbl.m1, lb=tbl.lb, use_stash=i == 0)
+        return (lambda: radix_table.probe_chunk(*args, **kw),
+                lambda: radix_table.probe_chunk_plain(*args, **kw))
+
     plain_reps = max(reps // 10, 1)
     # name: (kernel, plain twin, bytes read, operations, one library call
     # computing the same function or None).  Bytes count each input once
-    # (for the probes: the distinct rows these queries touch) and the
-    # outputs are added from what the kernel returns; operations count the
-    # row and stash compares of the probes, a sort's n log2 n compares and
-    # one operation per input element elsewhere.
+    # and the outputs are added from what the kernel returns.  A probe must
+    # read its queries, the stash, and of each distinct row its queries
+    # touch the hi half, plus one 32-B sector of lo words for each query
+    # whose hi half matched (_probe_reads).  Operations count the probes'
+    # hi and stash compares, a sort's n log2 n compares and one operation
+    # per input element elsewhere.
     runs = {
         "window_canonicals": (
             lambda: device_pipeline.window_canonicals(w, v, k, pc),
@@ -1132,8 +1251,8 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
             lambda: radix_table.probe_plain(tbl.slots, tbl.stash_keys,
                                             tbl.stash_labels, qf,
                                             m1=tbl.m1, lb=tbl.lb),
-            _nbytes(qf) + _distinct(b) * row_bytes + stash_bytes,
-            Q * (2 * tbl.c + STASH), None,
+            _nbytes(qf) + reads["probe"]["bytes"] + stash_bytes,
+            Q * (tbl.c + STASH), None,
         ),
         "top2": (
             lambda: score.top2_from_labels(lab),
@@ -1163,28 +1282,22 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
             _nbytes(*part[:3]), n_part * max(n_part.bit_length() - 1, 1),
             None,
         ),
-        "probe_chunk": (
-            lambda: radix_table.probe_chunk(chunk, tbl.stash_keys,
-                                            tbl.stash_labels, qf, 0,
-                                            m1=tbl.m1, lb=tbl.lb,
-                                            use_stash=True),
-            lambda: radix_table.probe_chunk_plain(chunk, tbl.stash_keys,
-                                                  tbl.stash_labels, qf, 0,
-                                                  m1=tbl.m1, lb=tbl.lb,
-                                                  use_stash=True),
-            _nbytes(qf) + _distinct(b[in_chunk]) * row_bytes + stash_bytes,
-            int(in_chunk.sum()) * 2 * tbl.c + Q * STASH, None,
-        ),
         "probe_dense": (
             lambda: radix_table.probe_dense(dt, qf),
             lambda: radix_table.probe_dense_plain(
                 dt.slots1, dt.slots2, dt.stash_keys, dt.stash_labels, qf,
                 m1=dt.m1, m2=dt.m2, lb=dt.lb),
-            _nbytes(qf) + (_distinct(b1) + _distinct(b2)) * 2 * dt.c * 4
-            + stash_bytes,
-            Q * (4 * dt.c + STASH), None,
+            _nbytes(qf) + reads["probe_dense plane 1"]["bytes"]
+            + reads["probe_dense plane 2"]["bytes"] + stash_bytes,
+            Q * (2 * dt.c + STASH), None,
         ),
     }
+    for i in range(4):  # the recorded "probe_chunk" is chunk 0's
+        r = reads[f"probe_chunk {i}"]
+        runs["probe_chunk" + (f" chunk {i}" if i else "")] = (
+            *chunk_fns(i),
+            _nbytes(qf) + r["bytes"] + (stash_bytes if i == 0 else 0),
+            r["queries"] * tbl.c + (Q * STASH if i == 0 else 0), None)
     out = {}
     for name, (kern, plain, nbytes, ops, library) in runs.items():
         got, want = kern(), plain()
@@ -1196,6 +1309,10 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
                          bound_ms=bound_ms, bound_by=bound_by,
                          library_ms=None if library is None
                          else _ms(library, dev, reps))
+    # the record's K7 error covers every chunk of the split
+    out["probe_chunk"]["max_abs_err"] = max(
+        out["probe_chunk" + (f" chunk {i}" if i else "")]["max_abs_err"]
+        for i in range(4))
     # K6 split: the torch.sort before it, and the kernel's own pass
     keys, seq = torch.sort(part[0] ^ device_build.SIGN, stable=True)
     out["aggregate"]["sort_ms"] = _ms(
@@ -1203,15 +1320,17 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
     if dev.type == "cuda":
         out["aggregate"]["kernel_only_ms"] = _ms(
             lambda: kernels.aggregate(keys, seq, *part[1:]), dev, reps)
+        # K7's three passes (count, scatter, probe) of chunk 0, one by one
+        out["probe_chunk"]["pass_ms"] = _device_split(
+            runs["probe_chunk"][0], dev, reps)
     return out, dict(rows=len(idx), stride=stride, windows=pc,
                      queries=len(idx) * pc, targets=T, dense_rows=dense_rows,
                      partition_entries=part[0].shape[0],
-                     chunk_rows=rows_per, queries_in_chunk=int(in_chunk.sum()),
-                     distinct_rows=dict(probe=_distinct(b),
-                                        probe_chunk=_distinct(b[in_chunk]),
-                                        probe_dense=[_distinct(b1),
-                                                     _distinct(b2)]),
-                     dense_m1_m2=[dt.m1, dt.m2])
+                     chunk_rows=rows_per,
+                     chunk_bins=kernels.chunk_bins(rows_per, tbl.c),
+                     counts_forms={t: kernels.counts_form(t + 1, pc)
+                                   for t in (T, 65535)},
+                     probe_reads=reads, dense_m1_m2=[dt.m1, dt.m2])
 
 
 # ------------------------------------------------------------------ main

@@ -258,11 +258,12 @@ def build_parser() -> argparse.ArgumentParser:
     add_profile_flags(pb)
     pb.add_argument("--tsk", action="store_true",
                     help="write per-target .ht files")
-    pb.add_argument("--device", nargs="?", const="cuda", default=None,
-                    help="aggregate k-mers on a torch device: cuda (the "
-                    "default when the flag is given: torch.sort + the "
-                    "hand-written K6 kernel) or cpu (its plain-PyTorch "
-                    "twin); without the flag, the native host aggregate")
+    pb.add_argument("--device", nargs="?", const="cuda", default="cuda",
+                    help="where k-mers aggregate: cuda (the default: "
+                    "torch.sort + the hand-written K6 kernel; raises "
+                    "without a CUDA device), cpu (its plain-PyTorch twin) "
+                    "or host (the native C++ aggregate); --tsk builds and "
+                    "spectrum inputs always aggregate on the host")
     pb.set_defaults(fn=cmd_db_build)
     for name in ("set-targets", "update-taxonomy", "download-taxonomy",
                  "download-genomes", "clean"):

@@ -113,11 +113,11 @@ def build(
     gap: int | None = None,
     min_count_target: int | None = None,
     tsk: bool = False,
-    device=None,
+    device="cuda",
 ):
     """Build (or rebuild) the discriminative k-mer DB for a configured
-    database directory; `device` as in builder.build_database (None: the
-    native host aggregate)."""
+    database directory; `device` as in builder.build_database ("cuda" by
+    default, "host" for the native host aggregate)."""
     profile = profile or cfg.profile
     k = k if k is not None else (cfg.k or profile.default_k)
     gap = gap if gap is not None else cfg.gap

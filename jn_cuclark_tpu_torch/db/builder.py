@@ -19,9 +19,10 @@ RemoveCommon (HashTableStorage_hh.hh:230-280): keep multiplicity==1 entries
 with count > minT; when centromere labels exist, also keep multiplicity==2
 entries (relabeled to the matching centromere label when one exists).
 
-Where the aggregate runs: the native host runtime (C++, the default), or a
-torch device with `device=` (device_build: torch.sort plus kernel K6 on
-CUDA, the plain twin on the CPU).  A device aggregate that fails raises;
+Where the aggregate runs: a torch device, "cuda" by default (device_build:
+torch.sort plus kernel K6 on CUDA, the plain twin with `device="cpu"`), or
+the native host runtime (C++) with `device="host"`.  A device aggregate
+that fails raises, and so does the default where CUDA is not available;
 nothing falls back to the host.  The build's stages report to the phase
 timers (utils/profiling): extract, partition, aggregate, filter, write.
 """
@@ -255,11 +256,22 @@ def ht_kmer_string(canon: int, k: int) -> str:
 
 
 def _device_of(device):
-    """None/False: the host aggregate; True: "cuda"; else a torch device
-    name or object."""
-    if device is None or device is False:
+    """The torch device of the aggregate ("cuda" for True), or None for the
+    native host aggregate ("host").  "cuda" raises where CUDA is not
+    available: nothing falls back."""
+    if device == "host":
         return None
-    return "cuda" if device is True else device
+    import torch
+
+    dev = torch.device("cuda" if device is True else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "db build aggregates on cuda by default, but CUDA is not "
+            "available: ask for the native host aggregate (device='host', "
+            "--device host) or the plain-PyTorch twin (device='cpu', "
+            "--device cpu)"
+        )
+    return dev
 
 
 def build_database(
@@ -270,14 +282,15 @@ def build_database(
     min_count_target: int = 0,
     gap: int | None = None,
     tsk: bool = False,
-    device=None,
+    device="cuda",
 ) -> BuiltDB:
     """Build and serialize the central DB (and optional per-target .ht files).
 
     `folder` is the database directory (the reference's -D).  `device`
-    ("cuda", "cpu", a torch.device, or True for "cuda") aggregates
-    unit-count occurrences on that torch device instead of the host; --tsk
-    and spectrum inputs always aggregate on the host, as in the JAX
+    says where unit-count occurrences aggregate: "cuda" (the default; also
+    True), "cpu" or another torch device, or "host" for the native host
+    aggregate.  Without CUDA the default raises before the aggregate.
+    --tsk and spectrum inputs always aggregate on the host, as in the JAX
     package.
     """
     gap = profile.default_gap if gap is None else gap
@@ -289,7 +302,6 @@ def build_database(
             f"{MTRGTS} (labels are 16-bit, dataType.hh:46); merge targets "
             "or split the database"
         )
-    device = _device_of(device)
     lidx = targets.label_index
     occ_c: list[np.ndarray] = []
     occ_v: list[np.ndarray | None] = []
@@ -312,6 +324,7 @@ def build_database(
     # (makeSpecificTargetSets light branch has no Save* calls)
     tsk = tsk and not profile.light
     lelement = not tsk  # --tsk builds use the 32-bit Element counter
+    device = _device_of(device) if all_unit_counts and not tsk else None
     stem = os.path.join(
         folder, profile.db_stem(k, targets.n_targets, min_count_target, gap)
     )

@@ -38,6 +38,14 @@ SOURCES = {
 }
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 
+# K7's bin plan and K5's forms: the constants of classify.cu's launchers,
+# which refuse a plan or a form that does not fit them.
+L2_SHARE_BYTES = 16 << 20  # a bin's row hi halves: a third of the 50 MB L2
+K7_MAX_BINS = 4096
+K5_SMALL_T1 = 4096  # small form: T+1 histogram columns per read, at most
+K5_TILE_W = 4096  # large form: windows per read, at most
+K5_FORMS = ("small", "large", "wide")
+
 LAUNCHES = {"window_canonicals": 0, "probe": 0, "top2": 0, "sort_top2": 0,
             "counts_top2": 0, "aggregate": 0, "probe_chunk": 0,
             "probe_dense": 0}
@@ -89,12 +97,13 @@ def _bind(name: str, lib):
             "launch_window_canonicals": [p, p, p, i64, i32, i32, i32, i32, p],
             "launch_probe": [p, p, p, p, p, i64, i32, i32, i32, p],
             "launch_probe_chunk": [p, p, p, p, p, i64, i32, i32, i32, i64,
-                                   i64, i32, p],
+                                   i64, i32, i32, i32, p, p, p],
             "launch_probe_dense": [p, p, p, p, p, p, i64, i32, i32, i32, i32,
                                    p],
             "launch_top2": [p, i64, i64, p, p, p, p, p, p],
             "launch_sort_top2": [p, i64, i64, p, p, p, p, p, p, p],
-            "launch_counts_top2": [p, i64, i64, i32, p, p, p, p, p, p, p],
+            "launch_counts_top2": [p, i64, i64, i32, i32, p, p, p, p, p, p,
+                                   p],
         },
         "aggregate": {
             "launch_group_starts": [p, p, i64, p],
@@ -206,6 +215,18 @@ def _check_rows(name: str, slots: torch.Tensor, m: int, lb: int, dev):
         raise ValueError(f"label bits lb={lb} must be below min({m}, 32)")
 
 
+def chunk_bins(rows_per: int, c: int) -> tuple[int, int]:
+    """K7's bin plan for a chunk of rows_per rows of 2c u32 words:
+    (shift, n_bins), bin = local row >> shift.  A bin's rows are the most
+    whose hi halves (c x 4 B each) fit L2_SHARE_BYTES, a power of two,
+    unless that would take more than K7_MAX_BINS bins (a chunk of over
+    K7_MAX_BINS x 2 x L2_SHARE_BYTES, beyond the card's memory)."""
+    shift = max((L2_SHARE_BYTES // (4 * c)).bit_length() - 1, 0)
+    while (rows_per - 1) >> shift >= K7_MAX_BINS:
+        shift += 1
+    return shift, ((rows_per - 1) >> shift) + 1
+
+
 def probe_chunk(slots: torch.Tensor, stash_keys: torch.Tensor,
                 stash_labels: torch.Tensor, q: torch.Tensor, start_row: int,
                 m1: int, lb: int, use_stash: bool) -> torch.Tensor:
@@ -221,12 +242,22 @@ def probe_chunk(slots: torch.Tensor, stash_keys: torch.Tensor,
     if not (rows_per >= 1 and 0 <= start_row < 1 << m1):
         raise ValueError(f"chunk of {rows_per} rows at {start_row} is not in "
                          f"a table of 2^{m1} rows")
+    Q, c = q.shape[0], slots.shape[1] // 2
+    if Q >= 1 << 31:
+        raise ValueError(f"{Q} queries: the chunk probe indexes them in int32")
+    shift, n_bins = chunk_bins(rows_per, c)
     lib = load()
-    out = torch.empty(q.shape[0], dtype=torch.int32, device=dev)
+    out = torch.empty(Q, dtype=torch.int32, device=dev)
+    # scratch: the in-chunk query indices, bin by bin, and per bin its count
+    # and cursor, then the finished-block ticket and the in-chunk total
+    index = torch.empty(Q, dtype=torch.int32, device=dev)
+    ctr = torch.zeros(2 * n_bins + 2, dtype=torch.int32, device=dev)
+    # three launches (count, scatter, probe) count as one K7 launch
     _launch(lib, lib.launch_probe_chunk, "probe_chunk", dev,
             slots.data_ptr(), stash_keys.data_ptr(), stash_labels.data_ptr(),
-            q.data_ptr(), out.data_ptr(), q.shape[0], slots.shape[1] // 2,
-            m1, lb, start_row, rows_per, 1 if use_stash else 0)
+            q.data_ptr(), out.data_ptr(), Q, c, m1, lb, start_row, rows_per,
+            1 if use_stash else 0, shift, n_bins, index.data_ptr(),
+            ctr.data_ptr())
     return out
 
 
@@ -287,6 +318,16 @@ def sort_top2(lab: torch.Tensor):
     return srt, total, ibest, best, isbest, sbest
 
 
+def counts_form(t1: int, w: int) -> str:
+    """K5's form for rows of w windows over t1 = T+1 count columns: "small"
+    (a warp per read, its histogram in shared memory) where t1 <=
+    K5_SMALL_T1, else "large" (a shared-memory hash of the read's labels)
+    where w <= K5_TILE_W, else "wide" (the multi-pass form)."""
+    if t1 <= K5_SMALL_T1:
+        return "small"
+    return "large" if w <= K5_TILE_W else "wide"
+
+
 def counts_top2(lab: torch.Tensor, n_targets: int):
     """K5: (counts, total, ibest, best, isbest, sbest): counts [R, T+1]
     int32 of the per-window labels lab [R, W] (label+1 in [0, T]; column 0
@@ -296,12 +337,13 @@ def counts_top2(lab: torch.Tensor, n_targets: int):
     if not 1 <= n_targets < (1 << 31) - 1:
         raise ValueError(f"bad target count {n_targets}")
     R, W = lab.shape
+    form = K5_FORMS.index(counts_form(n_targets + 1, W))
     lib = load()
     counts = torch.empty((R, n_targets + 1), dtype=torch.int32, device=dev)
     outs = torch.empty((5, R), dtype=torch.int32, device=dev)
     total, ibest, best, isbest, sbest = outs
     _launch(lib, lib.launch_counts_top2, "counts_top2", dev,
-            lab.data_ptr(), R, W, n_targets + 1, counts.data_ptr(),
+            lab.data_ptr(), R, W, n_targets + 1, form, counts.data_ptr(),
             total.data_ptr(), ibest.data_ptr(), best.data_ptr(),
             isbest.data_ptr(), sbest.data_ptr())
     return counts, total, ibest, best, isbest, sbest

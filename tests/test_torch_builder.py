@@ -63,7 +63,7 @@ def _same_files(d1, d2, names):
             assert a.read() == b.read(), fn
 
 
-@pytest.mark.parametrize("device", [None, "cpu"], ids=["host", "device-cpu"])
+@pytest.mark.parametrize("device", ["host", "cpu"], ids=["host", "device-cpu"])
 @pytest.mark.parametrize("case", sorted(GOLDENS))
 def test_build_matches_golden_db(tmp_path, case, device):
     tfile, prof, k, kwargs, stem = GOLDENS[case]
@@ -108,7 +108,7 @@ def test_build_matches_jax_builder(tmp_path, k, tsk, centromere):
     jdb = jbuilder.build_database(jparse_targets(tfile), str(tmp_path / "j"),
                                   prof, k, tsk=tsk)
     db = builder.build_database(parse_targets(tfile), str(tmp_path / "t"),
-                                prof, k, tsk=tsk)
+                                prof, k, tsk=tsk, device="host")
     assert np.array_equal(db.canonical, jdb.canonical)
     assert np.array_equal(db.labels, jdb.labels)
     assert db.n_mother == jdb.n_mother > len(db.canonical)
@@ -140,16 +140,16 @@ def test_device_cpu_equals_host_aggregate(tmp_path, monkeypatch, k,
 
     monkeypatch.setattr(device_build, "aggregate_device", spy)
     out = {}
-    for dev in (None, "cpu"):
+    for dev in ("host", "cpu"):
         d = tmp_path / str(dev)
         d.mkdir()
         out[dev] = builder.build_database(parse_targets(tfile), str(d), prof,
                                           k, device=dev)
-    assert np.array_equal(out[None].canonical, out["cpu"].canonical)
-    assert np.array_equal(out[None].labels, out["cpu"].labels)
-    assert out[None].n_mother == out["cpu"].n_mother
+    assert np.array_equal(out["host"].canonical, out["cpu"].canonical)
+    assert np.array_equal(out["host"].labels, out["cpu"].labels)
+    assert out["host"].n_mother == out["cpu"].n_mother
     stem = prof.db_stem(k, 3, 0, prof.default_gap)
-    _same_files(str(tmp_path / "None"), str(tmp_path / "cpu"),
+    _same_files(str(tmp_path / "host"), str(tmp_path / "cpu"),
                 [stem + e for e in (".sz", ".ky", ".lb")])
     # one call one-shot; partitioned: one per partition, padded to >= 2^20
     assert calls and (all(n >= 1 << 20 for n in calls) == partitioned)
@@ -232,6 +232,43 @@ def test_failing_device_aggregate_raises(tmp_path, monkeypatch):
                                device=True)
 
 
+def test_default_device_is_cuda(tmp_path, monkeypatch, capsys):
+    """builder.build_database, database.build and `cli db build` aggregate
+    on cuda unless told otherwise: without a CUDA device the default raises
+    before the aggregate (no quiet fallback to the host), while "host" and
+    --tsk builds, which aggregate on the host, still build."""
+    rng = np.random.default_rng(34)
+    tfile = _genomes(tmp_path, rng, 3, 800)
+    prof = Profile(name="t", htsize=1021, light=False, default_k=9)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert builder._device_of(True) == torch.device("cuda")
+    assert builder._device_of("cuda") == torch.device("cuda")
+    assert builder._device_of("host") is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = []
+    monkeypatch.setattr(device_build, "aggregate_device",
+                        lambda *a, **kw: calls.append(a))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        builder.build_database(parse_targets(tfile), str(tmp_path), prof, 9)
+    sub = tmp_path / "sub"
+    sub.mkdir()
+    cfg = database.DBConfig(db_dir=str(tmp_path), targets=tfile,
+                            subdb=str(sub), rank=0, profile_name="t", k=9,
+                            gap=0, min_count_target=0, htsize=1021,
+                            light=False)
+    cfg.save()
+    with pytest.raises(RuntimeError, match="--device host"):
+        database.build(cfg, profile=prof)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["db", "build", str(tmp_path), "-k", "9", "--htsize", "1021"])
+    assert not calls and not os.listdir(sub)
+    builder.build_database(parse_targets(tfile), str(tmp_path), prof, 9,
+                           tsk=True)
+    assert cli.main(["db", "build", str(tmp_path), "-k", "9", "--htsize",
+                     "1021", "--device", "host"]) == 0
+    assert "Database built:" in capsys.readouterr().out and not calls
+
+
 def test_import_builder_leaves_jax_out():
     code = (
         "import sys\n"
@@ -247,7 +284,7 @@ def test_import_builder_leaves_jax_out():
     assert r.returncode == 0, r.stderr
 
 
-@pytest.mark.parametrize("device", [None, "cpu"], ids=["host", "device-cpu"])
+@pytest.mark.parametrize("device", ["host", "cpu"], ids=["host", "device-cpu"])
 def test_cli_db_build(tmp_path, device, capsys):
     rng = np.random.default_rng(5)
     tfile = _genomes(tmp_path, rng, 3, 1500)
@@ -257,12 +294,12 @@ def test_cli_db_build(tmp_path, device, capsys):
                       rank=0, profile_name="c", k=11, gap=0,
                       min_count_target=0, htsize=4093, light=False).save()
     args = ["db", "build", str(tmp_path), "-k", "11", "--htsize", "4093"]
-    assert cli.main(args + (["--device", device] if device else [])) == 0
+    assert cli.main(args + ["--device", device]) == 0
     assert "Database built:" in capsys.readouterr().out
     (tmp_path / "lib").mkdir()
     prof = Profile(name="custom4093", htsize=4093, light=False, default_k=11)
     builder.build_database(parse_targets(tfile), str(tmp_path / "lib"), prof,
-                           11)
+                           11, device="host")
     stem = prof.db_stem(11, 3, 0, 0)
     _same_files(str(sub), str(tmp_path / "lib"),
                 [stem + e for e in (".sz", ".ky", ".lb")])

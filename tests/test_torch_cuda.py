@@ -32,10 +32,10 @@ def dev():
 
 def test_kernels_equal_their_twins(dev):
     kernels.reset_launches()
-    assert chip_smoke.check_kernels(dev) == 12 + 3 + 6 + 6 + 4 + 9 + 21 + 3
+    assert chip_smoke.check_kernels(dev) == 12 + 3 + 6 + 6 + 12 + 9 + 29 + 3
     assert kernels.LAUNCHES == {"window_canonicals": 15, "probe": 3, "top2": 6,
-                                "sort_top2": 6, "counts_top2": 4,
-                                "aggregate": 9, "probe_chunk": 21,
+                                "sort_top2": 6, "counts_top2": 12,
+                                "aggregate": 9, "probe_chunk": 29,
                                 "probe_dense": 6}
 
 

@@ -1,7 +1,8 @@
 """Out-of-core cycling in the PyTorch port against the JAX package, on the
-CPU: the chunk probe (twin of kernel K7), chunk_table, the two cycled batch
-steps, the memory policy, and cycled CSVs byte-equal to the port's resident
-run and to the JAX package's cycled run, all exact."""
+CPU: the chunk probe (twin of kernel K7) and K7's bin plan, chunk_table,
+the two cycled batch steps, the memory policy, and cycled CSVs byte-equal
+to the port's resident run and to the JAX package's cycled run, all
+exact."""
 
 import os
 import shutil
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from jn_cuclark_tpu import params as jparams
 from jn_cuclark_tpu.db import builder
 from jn_cuclark_tpu.engine import BatchPlan as JBatchPlan
@@ -24,7 +26,7 @@ from jn_cuclark_tpu_torch import cli
 from jn_cuclark_tpu_torch.database import DBConfig
 from jn_cuclark_tpu_torch.engine import BatchPlan, Classifier
 from jn_cuclark_tpu_torch.io import dbformat
-from jn_cuclark_tpu_torch.ops import device_pipeline, radix_table
+from jn_cuclark_tpu_torch.ops import device_pipeline, kernels, radix_table
 from jn_cuclark_tpu_torch.params import Profile
 from jn_cuclark_tpu_torch.utils import memory, native
 
@@ -98,6 +100,57 @@ def test_probe_chunk_plain_equals_jax(kbits, cycles):
     # stash counted once), misses stay 0
     assert np.array_equal(got_sum[: len(keys)], labels1)
     assert not got_sum[len(keys):].any()
+
+
+@pytest.mark.parametrize("kbits", [54, 64])
+@pytest.mark.parametrize("cycles", [2, 4])
+def test_probe_chunk_hi_collisions_equal_jax(kbits, cycles):
+    """Slots whose hi half equals a missing query's t_hi while the lo half
+    has a bit at or above lb set: misses that only the lo word tells apart
+    (K7 reads lo words only behind a matching hi word).  Q is odd."""
+    rng, keys, labels1, table = _table(kbits + 10 * cycles, 6000, kbits)
+    miss = rng.integers(0, (1 << 64) - 2, size=2001, dtype=np.uint64)
+    assert chip_smoke.forge_hi_collisions(table, miss) > 1000
+    q = np.concatenate([keys, miss])
+    stash = radix_table.put_stash(table.stash_keys, table.stash_labels, "cpu")
+    got_sum = np.zeros(len(q), np.int64)
+    for ch in jrt.chunk_table(table, cycles):
+        want = np.asarray(jrt.probe_chunk(
+            jnp.asarray(ch["slots"]), jnp.asarray(ch["labels"]),
+            jnp.asarray(table.stash_keys), jnp.asarray(table.stash_labels),
+            jnp.asarray(q), jnp.int32(ch["start_row"]), m1=table.m1,
+            lb=table.lb, c=table.slot_width,
+            use_stash=jnp.bool_(ch["use_stash"]),
+        ))
+        got = radix_table.probe_chunk(
+            torch.from_numpy(ch["slots"].view(np.int32)), *stash, _t(q),
+            ch["start_row"], m1=table.m1, lb=table.lb,
+            use_stash=ch["use_stash"],
+        )
+        assert np.array_equal(got.numpy(), want)
+        got_sum += got.numpy()
+    assert np.array_equal(got_sum[: len(keys)], labels1)
+    assert not got_sum[len(keys):].any()
+
+
+@pytest.mark.parametrize("c", [4, 6, 128])
+@pytest.mark.parametrize("rows_per", [1, 3, 4097, 262_144, (1 << 22) + 5])
+def test_chunk_bins_cover_each_row_once(rows_per, c):
+    """K7's bin plan: bin = local row >> shift puts every row of the chunk
+    in one of n_bins bins, none empty, each bin's hi halves (c x 4 B a row)
+    inside the L2 share."""
+    shift, n_bins = kernels.chunk_bins(rows_per, c)
+    per_bin = np.bincount(np.arange(rows_per) >> shift)
+    assert len(per_bin) == n_bins <= kernels.K7_MAX_BINS
+    assert per_bin.min() > 0 and per_bin.sum() == rows_per
+    assert per_bin.max() * c * 4 <= kernels.L2_SHARE_BYTES
+
+
+def test_chunk_bins_cap_the_bin_count():
+    """A chunk past K7_MAX_BINS bins of the L2 share (128 GiB of 1 KiB
+    rows) widens its bins rather than exceed the kernel's bin array."""
+    shift, n_bins = kernels.chunk_bins(1 << 28, 128)
+    assert n_bins == kernels.K7_MAX_BINS and (1 << 28) >> shift == n_bins
 
 
 @pytest.mark.parametrize("cycles", [1, 3, 4, 7])
@@ -195,7 +248,7 @@ def test_auto_db_cycles_equals_jax(monkeypatch):
 def test_transient_formula():
     wb, depth, counts = 1 << 23, 6, 5 << 20
     assert memory.probe_transient_bytes(wb, depth, counts) == (
-        17 * wb + (depth + 3) * (wb * 19 // 8 + counts))
+        21 * wb + (depth + 3) * (wb * 19 // 8 + counts))
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,8 @@
 """Extended scoring of the PyTorch port against the JAX package, on the CPU:
 score_from_labels in its three forms (K3 top-2, K4 sorted u16 grid + top-2,
 K5 dense counts + top-2, here their plain twins), and the dense-count twins
-counts_from_hits_plain / read_results_plain, all held to exact equality."""
+counts_from_hits_plain / read_results_plain, all held to exact equality,
+on shapes at both sides of K5's form edges; and K5's form rule."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,7 +11,7 @@ import torch
 
 from jn_cuclark_tpu.ops import device_pipeline as jdp
 from jn_cuclark_tpu.ops import score as jscore
-from jn_cuclark_tpu_torch.ops import device_pipeline, score
+from jn_cuclark_tpu_torch.ops import device_pipeline, kernels, score
 
 T_MAX = 65535
 
@@ -34,12 +35,17 @@ def _case(name):
         return lab, T_MAX
     if name == "one target":
         return rng.integers(0, 2, size=(6, 40)).astype(np.int32), 1
-    lab = rng.integers(0, 17, size=(64, 150)).astype(np.int32)
+    # K5's small form holds T+1 <= 4,096 columns a read; 13 reads are no
+    # multiple of its 8 reads a block
+    T, R = {"T+1=4096": (4095, 9), "T+1=4097": (4096, 9),
+            "ragged R": (16, 13)}.get(name, (16, 64))
+    lab = rng.integers(0, T + 1, size=(R, 150)).astype(np.int32)
     lab[::7] = 0
-    return lab, 16
+    return lab, T
 
 
-CASES = ["ties", "zero rows", "W=1", "T=65535", "one target", "random"]
+CASES = ["ties", "zero rows", "W=1", "T=65535", "one target", "random",
+         "T+1=4096", "T+1=4097", "ragged R"]
 
 
 @pytest.mark.parametrize("extended", [False, "sorted", True],
@@ -76,6 +82,16 @@ def test_counts_from_hits_and_read_results_equal_jax(case):
     for g, w in zip(score.read_results_plain(got),
                     jscore.read_results(jnp.asarray(want))):
         assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("t1, w, form", [
+    (2, 1, "small"), (17, 224, "small"), (4096, 5000, "small"),
+    (4097, 1, "large"), (65536, 4096, "large"), (4097, 4097, "wide"),
+    (65536, 100_000, "wide"),
+])
+def test_counts_form_by_shape(t1, w, form):
+    """K5's form follows the shape alone, at both sides of each edge."""
+    assert kernels.counts_form(t1, w) == form
 
 
 def test_sorted_grid_carries_labels_above_int16():

@@ -20,7 +20,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_phases_on_cpu(tmp_path, monkeypatch):
     dev = torch.device("cpu")
-    assert chip_smoke.check_kernels(dev) == 12 + 3 + 6 + 6 + 4 + 9 + 21 + 3
+    assert chip_smoke.check_kernels(dev) == 12 + 3 + 6 + 6 + 12 + 9 + 29 + 3
     assert chip_smoke.check_goldens(dev, str(tmp_path)) == 6
     assert chip_smoke.check_golden_dbs(dev, str(tmp_path)) == 3
     dense = chip_smoke.check_dense_targets(dev, str(tmp_path), n_reads=40)
@@ -66,7 +66,12 @@ def test_phases_on_cpu(tmp_path, monkeypatch):
                                             dense_rows=8)
     assert shape["stride"] == 256 and shape["windows"] == 224
     assert shape["partition_entries"] == 1 << 20
-    assert set(timing) == set(chip_smoke.KERNELS) | {"counts_top2 T=65535"}
+    assert set(timing) == set(chip_smoke.KERNELS) | {
+        "counts_top2 T=65535", "probe_chunk chunk 1", "probe_chunk chunk 2",
+        "probe_chunk chunk 3"}
+    assert sum(shape["probe_reads"][f"probe_chunk {i}"]["queries"]
+               for i in range(4)) == shape["queries"]
+    assert shape["counts_forms"] == {3: "small", 65535: "large"}
     assert all(t["max_abs_err"] == 0.0 for t in timing.values())
     assert all(t["bound_ms"] > 0 and t["bound_by"] in ("bytes", "operations")
                for t in timing.values())
