@@ -18,7 +18,11 @@ raises and exits non-zero before the result lines:
              off, k = 32 keys, slots whose hi half equals a missing query's,
              a chunk every query falls in and ones none does, and the u16
              label grid of the labels strategy; K8 with keys in plane 2 and
-             the stash
+             the stash; K2 and K8 (grouped by row) with forged hi
+             collisions, a row of 12,000 queries, every query on one row,
+             Q = 1, Q no multiple of the tile, a bin past one tile, C = 2,
+             4, 6, 16 and 128, and K8's plane 2 on both sides of its form
+             edge
   3 goldens  classify the reference's golden reads on the card (single-end,
              --extended, paired): the six CSVs must be byte-equal to
              tests/golden; rebuild three golden DBs with device="cuda"
@@ -52,7 +56,8 @@ raises and exits non-zero before the result lines:
              byte-equal
   5 timing   each kernel and its twin at the shapes of those paths, with
              its bound and a one-call PyTorch yardstick where one exists;
-             K7 against each chunk of the table's 4-cycle split
+             K7 against each chunk of the table's 4-cycle split; K2, K7 and
+             K8 split by pass (torch.profiler)
 
 The last two lines are the kernels' JSON record and the run's contract
 line {"ok": true, "device": {...}}.  With no CUDA device it exits 1 and
@@ -144,9 +149,13 @@ def k1_cases(seed: int = 0):
 
 def k2_cases(seed: int = 0):
     """(label, (RadixTable, q)) on the host: a forced stash (c=4 at load
-    16), lb = 17 (65,535 labels), and an all-EMPTY stash (the row probe of
-    benchmarks/experiments.py:exp_probe_pallas); queries are stored keys,
-    random misses and EMPTY."""
+    16), lb = 17 (65,535 labels) at k = 32, and an all-EMPTY stash (the
+    row probe of benchmarks/experiments.py:exp_probe_pallas), queried with
+    stored keys, random misses and EMPTY; then K2's grouped design at its
+    edges: slots whose hi half equals a missing query's, one row carrying
+    12,000 queries, every query on one row, Q = 1, a Q that is no multiple
+    of the tile, a bin of several rows holding three tiles of queries, and
+    rows of C = 2, 6 and 128 (C = 4 and 16 above)."""
     rng = np.random.default_rng(seed)
     for label, n, maxlab, kw in (
         ("forced stash", 20_000, 40, dict(c=4, load=16.0)),
@@ -168,6 +177,45 @@ def k2_cases(seed: int = 0):
             np.full(64, radix_table.EMPTY, np.uint64),
         ])
         yield label, (table, _i64(q[rng.permutation(len(q))]))
+    yield from _k2_group_cases(rng)
+
+
+def _k2_group_cases(rng):
+    """k2_cases' cases of the grouped design (see there)."""
+    def table_of(n, kbits, **kw):
+        keys = np.unique(rng.integers(0, (1 << kbits) - 2, size=n,
+                                      dtype=np.uint64))
+        labels1 = rng.integers(1, 301, size=len(keys)).astype(np.int32)
+        return keys, radix_table.build(keys, labels1, **kw)
+
+    keys, table = table_of(60_000, 54)
+    miss = rng.integers(0, (1 << 64) - 2, size=20_000, dtype=np.uint64)
+    # misses, and stored keys whose row then holds two matching hi words
+    if min(forge_hi_collisions(table, miss),
+           forge_hi_collisions(table, keys[:5_000])) < 2_000:
+        raise AssertionError("K2 hi collisions: too few free slots")
+    yield "hi collisions c=16", (table, _i64(np.concatenate([keys, miss])))
+    keys, table = table_of(60_000, 64, c=128)
+    hot = hot_row_queries(rng, keys, table.m1, 12_000)
+    yield "a row of 12,000 queries k=32 c=128", (
+        table, _i64(np.concatenate([keys, hot])[rng.permutation(
+            len(keys) + len(hot))]))
+    yield "every query on one row", (
+        table, _i64(hot_row_queries(rng, keys, table.m1, 5_000)))
+    yield "Q=1", (table, _i64(keys[:1]))
+    keys, table = table_of(20_000, 54, c=2)
+    q = np.concatenate([keys, miss])[: 3 * kernels.GROUP_TILE + 17]
+    yield "Q=6,161 c=2", (table, _i64(q))
+    keys, table = table_of(60_000, 54, c=6)
+    yield "k=27 c=6", (table, _i64(np.concatenate([keys, miss])))
+    keys, table = table_of(150_000, 54)
+    shift = kernels.group_bins(1 << table.m1)[0]
+    if shift < 2:
+        raise AssertionError(f"K2 bins of 2^{shift} rows: want several")
+    in_bin = hot_row_queries(rng, keys, table.m1, 3 * kernels.GROUP_TILE,
+                             rows=np.arange(1 << shift))
+    yield f"a bin of {1 << shift} rows past one tile", (
+        table, _i64(np.concatenate([in_bin, keys])))
 
 
 def k3_cases(seed: int = 0):
@@ -273,26 +321,52 @@ def keys_in_rows(rng, rows, m1: int) -> np.ndarray:
         return mixed * radix_table._MIX1_INV
 
 
-def forge_hi_collisions(table, q: np.ndarray) -> int:
+def _plane(table, plane: int):
+    """(slots, m, mix) of a RadixTable (plane 0) or a DenseTable's plane 1
+    or 2."""
+    if plane == 0:
+        return table.slots, table.m1, radix_table._MIX1
+    if plane == 1:
+        return table.slots1, table.m1, radix_table._MIX1
+    return table.slots2, table.m2, radix_table._MIX2
+
+
+def forge_hi_collisions(table, q: np.ndarray, plane: int = 0) -> int:
     """For each query of q whose row has a free slot, write there a slot
     whose hi half equals the query's t_hi while its lo half differs from
     t_lo in a bit at or above lb (bit lb, or bit 31): a miss that only the
-    lo word tells apart.  Returns the number of slots written."""
-    c, lb, m1 = table.slot_width, table.lb, table.m1
+    lo word tells apart.  plane: 0 for a RadixTable, 1 or 2 for a
+    DenseTable's plane.  Returns the number of slots written."""
+    slots, m, mix = _plane(table, plane)
+    c, lb = table.slot_width, table.lb
     with np.errstate(over="ignore"):
-        mixed = q * radix_table._MIX1
-    rows = (mixed >> np.uint64(64 - m1)).astype(np.int64)
-    t = (mixed & np.uint64((1 << (64 - m1)) - 1)) << np.uint64(lb)
+        mixed = q * mix
+    rows = (mixed >> np.uint64(64 - m)).astype(np.int64)
+    t = (mixed & np.uint64((1 << (64 - m)) - 1)) << np.uint64(lb)
     n = 0
     for i, (r, ti) in enumerate(zip(rows, t)):
-        free = np.nonzero(table.slots[r, c:] == radix_table.EMPTY32)[0]
+        free = np.nonzero(slots[r, c:] == radix_table.EMPTY32)[0]
         if len(free):
             flip = 1 << (lb if i % 2 else 31)
-            table.slots[r, free[0]] = np.uint32((int(ti) & 0xFFFFFFFF) ^ flip
-                                                ^ (i % 7))
-            table.slots[r, c + free[0]] = np.uint32(int(ti) >> 32)
+            slots[r, free[0]] = np.uint32((int(ti) & 0xFFFFFFFF) ^ flip
+                                          ^ (i % 7))
+            slots[r, c + free[0]] = np.uint32(int(ti) >> 32)
             n += 1
     return n
+
+
+def hot_row_queries(rng, keys: np.ndarray, m: int, n: int,
+                    rows=None) -> np.ndarray:
+    """n queries bucketed (under _MIX1, 2^m rows) into `rows` (default: the
+    row of keys[0]), half of them the stored keys of those rows repeated,
+    half random quotients there (misses)."""
+    bucket = radix_table._mix_np(keys, m)
+    rows = np.atleast_1d(bucket[0] if rows is None else rows)
+    stored = keys[np.isin(bucket, rows)]
+    return np.concatenate([
+        stored[np.arange(n - n // 2) % len(stored)],
+        keys_in_rows(rng, rows[rng.integers(0, len(rows), size=n // 2)], m),
+    ])[rng.permutation(n)]
 
 
 def k7_cases(seed: int = 0):
@@ -383,6 +457,46 @@ def k8_cases(seed: int = 0):
             np.full(64, radix_table.EMPTY, np.uint64),
         ])
         yield label, (dense, q[rng.permutation(len(q))], keys, labels1)
+    yield from _k8_group_cases(rng)
+
+
+def _k8_group_cases(rng):
+    """k8_cases' cases of the grouped design: hi collisions forged in both
+    planes, plane 2 at C = 128 on each side of its form edge
+    (kernels.plane2_form: m2 = 6 local, m2 = 7 grouped) with a plane-1 row
+    of 12,000 queries, every query on one plane-1 row, Q = 1 and a Q that
+    is no multiple of the tile."""
+    def dense_of(n, maxlab, c):
+        keys = np.unique(rng.integers(0, (1 << 54) - 2, size=2 * n,
+                                      dtype=np.uint64))[:n]
+        labels1 = rng.integers(1, maxlab + 1, size=len(keys)).astype(np.int32)
+        return keys, labels1, radix_table.build_dense(keys, labels1, c=c)
+
+    miss = rng.integers(0, (1 << 64) - 2, size=20_000, dtype=np.uint64)
+    keys, labels1, dense = dense_of(29_000, 200, 16)
+    n1 = forge_hi_collisions(dense, miss[:10_000], plane=1)
+    n2 = forge_hi_collisions(dense, miss[10_000:], plane=2)
+    n3 = forge_hi_collisions(dense, keys[:3_000], plane=1)  # 2 hi matches
+    if min(n1, n2) < 1000 or n3 < 100:
+        raise AssertionError(f"K8 hi collisions: {n1}, {n2}, {n3} forged")
+    yield "hi collisions in both planes c=16", (
+        dense, np.concatenate([keys, miss]), keys, labels1)
+    for maxlab, form in ((30, "local"), (62, "grouped")):
+        keys, labels1, dense = dense_of(58_000, maxlab, 128)
+        got = kernels.plane2_form(dense.m2, 128)
+        if (dense.m2, got) != (7 if form == "grouped" else 6, form):
+            raise AssertionError(f"K8 plane 2: m2 = {dense.m2}, {got} form")
+        if not radix_table.occupied_count(dense.slots2, 128):
+            raise AssertionError("K8 plane 2 holds no key")
+        hot = hot_row_queries(rng, keys, dense.m1, 12_000)
+        q = np.concatenate([keys, hot, miss])
+        yield f"plane 2 {form} m2={dense.m2}, a row of 12,000 queries", (
+            dense, q[rng.permutation(len(q))], keys, labels1)
+    yield "every query on one row", (
+        dense, hot_row_queries(rng, keys, dense.m1, 5_000), keys, labels1)
+    yield "Q=1", (dense, keys[:1], keys, labels1)
+    yield "Q=6,161", (dense, np.concatenate([miss, keys])[
+        : 3 * kernels.GROUP_TILE + 17], keys, labels1)
 
 
 def k7_labels_case(seed: int = 0):
@@ -1320,9 +1434,10 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
     if dev.type == "cuda":
         out["aggregate"]["kernel_only_ms"] = _ms(
             lambda: kernels.aggregate(keys, seq, *part[1:]), dev, reps)
-        # K7's three passes (count, scatter, probe) of chunk 0, one by one
-        out["probe_chunk"]["pass_ms"] = _device_split(
-            runs["probe_chunk"][0], dev, reps)
+        # the passes of K7 (count, scatter, probe) on chunk 0, of K2 and of
+        # K8 (count, tiles, scatter, grouped probe; K8 per plane), one by one
+        for name in ("probe_chunk", "probe", "probe_dense"):
+            out[name]["pass_ms"] = _device_split(runs[name][0], dev, reps)
     return out, dict(rows=len(idx), stride=stride, windows=pc,
                      queries=len(idx) * pc, targets=T, dense_rows=dense_rows,
                      partition_entries=part[0].shape[0],
@@ -1330,7 +1445,10 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
                      chunk_bins=kernels.chunk_bins(rows_per, tbl.c),
                      counts_forms={t: kernels.counts_form(t + 1, pc)
                                    for t in (T, 65535)},
-                     probe_reads=reads, dense_m1_m2=[dt.m1, dt.m2])
+                     probe_reads=reads, dense_m1_m2=[dt.m1, dt.m2],
+                     probe_bins=kernels.group_bins(1 << tbl.m1),
+                     dense_bins=[kernels.group_bins(1 << dt.m1),
+                                 kernels.plane2_form(dt.m2, dt.c)])
 
 
 # ------------------------------------------------------------------ main

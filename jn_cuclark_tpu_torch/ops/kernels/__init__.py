@@ -38,10 +38,14 @@ SOURCES = {
 }
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 
-# K7's bin plan and K5's forms: the constants of classify.cu's launchers,
-# which refuse a plan or a form that does not fit them.
+# K7's and K2/K8's bin plans and K5's forms: the constants of classify.cu's
+# launchers, which refuse a plan or a form that does not fit them.
 L2_SHARE_BYTES = 16 << 20  # a bin's row hi halves: a third of the 50 MB L2
-K7_MAX_BINS = 4096
+K7_MAX_BINS = 4096  # K2/K8's bins too: their partition's shared histograms
+GROUP_TILE = 2048  # queries a K2/K8 block sorts by row at once
+GROUP_KEY_BITS = 13  # a tile's counting-sort keys: 2^13 counters
+GROUP_LOCAL_BYTES = 32 << 10  # plane-2 hi halves up to this: the local form
+SMEM_BYTES = 232_448  # shared memory one H100 block may use
 K5_SMALL_T1 = 4096  # small form: T+1 histogram columns per read, at most
 K5_TILE_W = 4096  # large form: windows per read, at most
 K5_FORMS = ("small", "large", "wide")
@@ -95,11 +99,13 @@ def _bind(name: str, lib):
     sigs = {
         "classify": {
             "launch_window_canonicals": [p, p, p, i64, i32, i32, i32, i32, p],
-            "launch_probe": [p, p, p, p, p, i64, i32, i32, i32, p],
+            "launch_probe": [p, p, p, p, p, i64, i32, i32, i32, i32, i32,
+                             i32, i32, p, p, p, p, p],
             "launch_probe_chunk": [p, p, p, p, p, i64, i32, i32, i32, i64,
                                    i64, i32, i32, i32, p, p, p],
             "launch_probe_dense": [p, p, p, p, p, p, i64, i32, i32, i32, i32,
-                                   p],
+                                   i32, i32, i32, i32, i32, i32, i32, i32,
+                                   p, p, p, p, p],
             "launch_top2": [p, i64, i64, p, p, p, p, p, p],
             "launch_sort_top2": [p, i64, i64, p, p, p, p, p, p, p],
             "launch_counts_top2": [p, i64, i64, i32, i32, p, p, p, p, p, p,
@@ -190,13 +196,74 @@ def probe(slots: torch.Tensor, stash_keys: torch.Tensor,
     _check("q", q, torch.int64, 1, dev)
     if slots.shape[0] != 1 << m1:
         raise ValueError(f"slots shape {tuple(slots.shape)} does not match m1={m1}")
+    Q = _check_group_queries(q)
+    plan = group_bins(1 << m1)
     lib = load()
-    out = torch.empty(q.shape[0], dtype=torch.int32, device=dev)
+    out = torch.empty(Q, dtype=torch.int32, device=dev)
+    grid, *scratch = _group_scratch(Q, plan[1], dev)
+    # the partition's launches (count, offsets, tiles, scatter; twice past
+    # 64 bins) and the probe count as one
     _launch(lib, lib.launch_probe, "probe", dev,
             slots.data_ptr(), stash_keys.data_ptr(), stash_labels.data_ptr(),
-            q.data_ptr(), out.data_ptr(), q.shape[0], slots.shape[1] // 2,
-            m1, lb)
+            q.data_ptr(), out.data_ptr(), Q, slots.shape[1] // 2, m1, lb,
+            *plan, grid, *(t.data_ptr() for t in scratch))
     return out
+
+
+def group_bins(n_rows: int) -> tuple[int, int, int]:
+    """K2's and K8's bin plan for a plane of n_rows rows: (shift, n_bins,
+    kshift).  bin = row >> shift, as fine as the partition passes allow
+    (K7_MAX_BINS bins: a batch of 7.3M queries puts ~1,800 in a bin, one
+    GROUP_TILE tile); a tile counting-sorts its queries by local row >>
+    kshift, which is 0 unless a bin holds more than 2^GROUP_KEY_BITS rows
+    (a plane of over 2^25 rows)."""
+    shift = max((n_rows - 1).bit_length() - K7_MAX_BINS.bit_length() + 1, 0)
+    return (shift, ((n_rows - 1) >> shift) + 1,
+            max(shift - GROUP_KEY_BITS, 0))
+
+
+def group_smem_bytes(shift: int, kshift: int) -> int:
+    """Shared memory of one K2/K8 tile: per query its t (8 B), index and
+    local row (4 B each), rank and sorted position (2 B each), then the
+    counting sort's counters."""
+    return 20 * GROUP_TILE + (4 << (shift - kshift))
+
+
+def plane2_form(m2: int, c: int) -> str:
+    """K8's form for plane 2 (2^m2 rows of 2c words): "local" (every block
+    stages the plane's occupied slots in shared memory, a thread per query)
+    where the plane's hi halves fit GROUP_LOCAL_BYTES, else "grouped"
+    (partitioned as plane 1)."""
+    return "local" if (4 * c) << m2 <= GROUP_LOCAL_BYTES else "grouped"
+
+
+def plane2_smem_bytes(m2: int, c: int) -> int:
+    """Shared memory of K8's local form: the plane's occupied hi and lo
+    words in rows of c + 1 (an odd pitch keeps the rows on distinct banks)
+    and a count per row."""
+    return (8 * (c + 1) + 4) << m2
+
+
+def _check_group_queries(q: torch.Tensor) -> int:
+    Q = q.shape[0]
+    if Q >= 1 << 31:
+        raise ValueError(f"{Q} queries: the probe indexes them in int32")
+    return Q
+
+
+def _group_scratch(Q: int, n_bins: int, dev):
+    """(G, list, keys, cnt, ctr): the G blocks that partition the queries
+    (two a streaming multiprocessor) and the grouped probes' scratch, none
+    of it zeroed: the query indices and their mixed keys bin by bin, for
+    each of the partition's two levels [2, Q]; each block's count then
+    offset in each bin [n_bins, G]; the bins' totals, starts and first
+    tiles [3 n_bins + 1]."""
+    grid = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+    return (grid,
+            torch.empty(2 * Q, dtype=torch.int32, device=dev),
+            torch.empty(2 * Q, dtype=torch.int64, device=dev),
+            torch.empty(n_bins * grid, dtype=torch.int32, device=dev),
+            torch.empty(3 * n_bins + 1, dtype=torch.int32, device=dev))
 
 
 def _check_stash(stash_keys, stash_labels, dev):
@@ -276,12 +343,19 @@ def probe_dense(slots1: torch.Tensor, slots2: torch.Tensor,
             or slots1.shape[1] != slots2.shape[1]):
         raise ValueError(f"planes {tuple(slots1.shape)}/{tuple(slots2.shape)} "
                          f"do not match m1={m1}, m2={m2}")
+    Q, c = _check_group_queries(q), slots1.shape[1] // 2
+    plan1 = group_bins(1 << m1)
+    local2 = plane2_form(m2, c) == "local"
+    plan2 = (m2, 1, 0) if local2 else group_bins(1 << m2)
     lib = load()
-    out = torch.empty(q.shape[0], dtype=torch.int32, device=dev)
+    out = torch.empty(Q, dtype=torch.int32, device=dev)
+    grid, *scratch = _group_scratch(Q, max(plan1[1], plan2[1]), dev)
+    # plane 1's launches and plane 2's count as one
     _launch(lib, lib.launch_probe_dense, "probe_dense", dev,
             slots1.data_ptr(), slots2.data_ptr(), stash_keys.data_ptr(),
-            stash_labels.data_ptr(), q.data_ptr(), out.data_ptr(), q.shape[0],
-            slots1.shape[1] // 2, m1, m2, lb)
+            stash_labels.data_ptr(), q.data_ptr(), out.data_ptr(), Q, c, m1,
+            m2, lb, *plan1, 1 if local2 else 0, *plan2, grid,
+            *(t.data_ptr() for t in scratch))
     return out
 
 

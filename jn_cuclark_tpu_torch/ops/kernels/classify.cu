@@ -22,10 +22,10 @@
 // synchronise, allocates nothing, and returns cudaGetLastError() so a
 // refused launch surfaces at once.
 //
-// K1-K4 and K8 are first, simple kernels: one thread per window, one warp
-// per query, one block per read.  K5 and K7 are redesigned for the card
-// (their notes below say what bounds them and what the design does about
-// it).  The DB-build aggregate (K6) lives in aggregate.cu.
+// K1, K3 and K4 are first, simple kernels: one thread per window, one block
+// per read.  K2, K5, K7 and K8 are redesigned for the card (their notes
+// below say what bounds them and what the design does about it).  The
+// DB-build aggregate (K6) lives in aggregate.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -88,79 +88,6 @@ __global__ void window_canonicals_kernel(const u64* __restrict__ words,
   q[i] = valid ? canon : EMPTY64;
 }
 
-// ---------------------------------------------------------------- K2
-// Bound by the row gather: each query reads one 2C-word row (1 KiB at
-// C = 128) at a random bucket of a table far larger than L2.  One warp per
-// query: lane j reads lo/hi words j, j+32, ... so each half-row is read as
-// coalesced 128 B segments; the warp reduces the max label with shuffles.
-// The 64-entry stash is staged in shared memory once per block.  K8 below
-// shares these pieces.
-
-// Stage the stash in shared memory (all threads of the block).
-__device__ __forceinline__ void load_stash(const u64* __restrict__ stash_keys,
-                                           const int* __restrict__ stash_labels,
-                                           u64* sk, int* sl) {
-  for (int j = threadIdx.x; j < STASH_CAP; j += blockDim.x) {
-    sk[j] = stash_keys[j];
-    sl[j] = stash_labels[j];
-  }
-  __syncthreads();
-}
-
-// This lane's largest hit label in one row for a query of quotient qlow
-// (0 = none).  hit <=> slot == (qlow << lb) | label: x_hi == 0 and
-// x_lo < 2^lb, tested as "no bit at or above lb set".
-__device__ __forceinline__ int scan_row(const u32* __restrict__ row, int C,
-                                        u64 qlow, int lb, int lane) {
-  u64 t = qlow << lb;
-  u32 t_lo = (u32)t, t_hi = (u32)(t >> 32);
-  u32 above = ~((1u << lb) - 1);
-  int best = 0;
-  for (int j = lane; j < C; j += 32) {
-    u32 xl = row[j] ^ t_lo;
-    u32 xh = row[C + j] ^ t_hi;
-    if (xh == 0 && (xl & above) == 0) best = max(best, (int)xl);
-  }
-  return best;
-}
-
-// This lane's share of the stash compare; EMPTY stash padding carries
-// label 0, so it never raises the max.
-__device__ __forceinline__ int scan_stash(const u64* sk, const int* sl, u64 x,
-                                          int lane) {
-  int best = 0;
-  for (int j = lane; j < STASH_CAP; j += 32)
-    if (sk[j] == x) best = max(best, sl[j]);
-  return best;
-}
-
-__device__ __forceinline__ int warp_max(int v) {
-  for (int o = 16; o; o >>= 1)
-    v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__global__ void probe_kernel(const u32* __restrict__ slots,
-                             const u64* __restrict__ stash_keys,
-                             const int* __restrict__ stash_labels,
-                             const u64* __restrict__ q, int* __restrict__ out,
-                             long long Q, int C, int m1, int lb) {
-  __shared__ u64 sk[STASH_CAP];
-  __shared__ int sl[STASH_CAP];
-  load_stash(stash_keys, stash_labels, sk, sl);
-  int lane = threadIdx.x & 31;
-  long long qi = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
-  if (qi >= Q) return;  // qi is uniform across the warp
-
-  u64 x = q[qi];
-  u64 mixed = x * MIX1;  // wraps mod 2^64
-  u64 b = mixed >> (64 - m1);
-  u64 qlow = mixed & ((1ull << (64 - m1)) - 1);
-  int best = scan_row(slots + b * (u64)(2 * C), C, qlow, lb, lane);
-  best = warp_max(max(best, scan_stash(sk, sl, x, lane)));
-  if (lane == 0) out[qi] = best;
-}
-
 // ---------------------------------------------------------------- K7
 // Replaces radix_table.py:411 probe_chunk (out-of-core cycling): label+1 per
 // query against one chunk of rows [start_row, start_row + rows_per) of a
@@ -195,7 +122,8 @@ __global__ void probe_kernel(const u32* __restrict__ slots,
 //        slot's hi half (0xFFFFFFFF) never equals t_hi, since lb < m1
 //        keeps qlow << lb below 2^63.  out[qi] = max(out[qi], row label).
 //
-// K2 and K8 keep their warp-per-query scan_row above.
+// K2 and K8 below partition all their queries, by finer bins and with no
+// global atomics, so they have partition kernels of their own.
 #define K7_THREADS 256
 #define K7_QPT 8     // queries a thread places per block tile in (a2)
 #define K7_LANES 8   // lanes per query in (b)
@@ -375,37 +303,572 @@ chunk_probe_kernel(const u32* __restrict__ slots, const u64* __restrict__ q,
   }
 }
 
-// ---------------------------------------------------------------- K8
-// Replaces radix_table.py:602 probe_dense: the two-plane dense table.  One
-// warp per query reads the plane-1 row at (q * MIX1) >> (64 - m1) and the
-// plane-2 row at (q * MIX2) >> (64 - m2), each with its own quotient, and
-// the shared-memory stash; a key lives in one plane or the stash, so the
-// answer is max(lab1, lab2, stash).  Plane 2 holds the ~0.5% of keys that
-// plane 1's buckets overflow, a small array that stays in L2, so the
-// DRAM-bound cost is plane 1's row reads, as K2's.
-__global__ void probe_dense_kernel(const u32* __restrict__ slots1,
-                                   const u32* __restrict__ slots2,
-                                   const u64* __restrict__ stash_keys,
-                                   const int* __restrict__ stash_labels,
-                                   const u64* __restrict__ q,
-                                   int* __restrict__ out, long long Q, int C,
-                                   int m1, int m2, int lb) {
+// ---------------------------------------------------------------- K2, K8
+// K2 replaces radix_table.py:393 probe (_probe_rows :332 + _stash_lookup
+// :359), and with an all-EMPTY stash exactly what exp_probe_pallas
+// computes; K8 replaces radix_table.py:602 probe_dense, max(plane 1 with
+// MIX1 and m1, plane 2 with MIX2 and m2, the stash).  Label+1 per query,
+// 0 on a miss.
+//
+// Bound by bytes: the queries read once, the hi half (C x 4 B) of each
+// distinct row they touch once, one 32-B sector of lo words where a hi
+// word matched, the labels written once.  A batch probes ~7 queries per
+// row (7.3M queries over 2^20 rows), so a warp per query that reads its
+// whole row moves ~14x the bound's bytes, and K7's L2-sized bins alone
+// (each query reading its own hi half from L2) still ~7x.  So the queries
+// are grouped by row and each row's hi half is read once for all of them.
+// What bounds the design now is the walk (b): its compares, which the
+// rows' DRAM reads only partly overlap (PERF.md).
+//
+// The partition, one level into nbins bins of bucket >> bshift, is four
+// launches; past G_COARSE bins it runs twice, first into the coarse bins
+// (bin >> G_COARSE_BITS), then from that coarse order into the bins, so
+// that each level writes long runs a bin (one level into 4,096 bins wrote
+// 4-12 B pieces all over a list larger than the L2, several times slower):
+//
+//   (a1) group_count: block b counts the queries of its contiguous slice
+//        in each bin in shared memory and writes the counts to column b
+//        of a [nbins, G] matrix.  No global atomics: at 4,096 bins, one
+//        atomic per bin per block dominated the pass.
+//   (a2) group_offsets: a warp per bin scans its row of the matrix into
+//        each block's offset inside the bin, and the bin's total.
+//   (a3) group_tiles: one block scans the totals into bin starts and the
+//        first tile of each bin (a bin of n queries takes ceil(n/G_TILE)).
+//   (a4) group_scatter: block b again, over the same slice, in tiles of
+//        G_PART_TILE sorted by bin in shared memory, so each bin's run of
+//        a tile leaves as consecutive stores: each query's index and mixed
+//        key (so (b) reads them in order, not q by index), and from q the
+//        stash answer into out[qi] (plane 1; the stash in shared memory).
+//   (b)  group_probe: a block per tile of G_TILE queries of one bin (4,096
+//        bins of 2^shift rows, kernels.group_bins: ~1,800 queries a bin at
+//        7.3M) on a persistent grid, so a hot bin spreads over many blocks.
+//        The block counting-sorts its tile by local row in shared memory
+//        (a permutation).  Its warps walk the sorted tile in segments of
+//        32 queries, the next segment's rows prefetched into L2; a
+//        segment's runs of one row each load the row's hi half once into
+//        registers (one 16-B load a lane at C = 128, three runs in flight),
+//        and each query of the run is compared against it with one ballot,
+//        which lane j keeps for query j.  After the segment each lane
+//        finds its query's matching hi word from the ballot (re-reading
+//        only those lanes' 16 B, from L1) and reads its lo word; the lo
+//        word is used after the next segment's rows are in flight, so a hit
+//        costs no latency of its own.  Several matching hi words (a rare
+//        false match beside a hit) make the lane scan its row alone.  A
+//        hit is atomicMax'ed into out[qi].  A row whose queries straddle
+//        two segments or tiles is read twice (from L1 or L2): still exact,
+//        since the answer is a max, and a hot row of thousands of queries
+//        is split over as many warps.  Rows that are not 16-B vectors of
+//        at most 128 words (C % 4 != 0 or C > 128) take a lane per query,
+//        each scanning its row's hi half through L1.
+//
+// Hi first is exact: a hit needs x_hi == 0, and an EMPTY slot's hi half
+// (0xFFFFFFFF) never equals t_hi, since lb < m keeps qlow << lb below 2^63.
+//
+// K8's plane 2 holds the few keys plane 1's buckets overflow: 2^m2 rows,
+// nearly empty and hot (~115,000 queries a row at config 2, m2 = 6, 9 hi
+// matches in 7.3M queries).  Where its slots fit G_LOCAL_BYTES of hi words
+// (kernels.plane2_form "local"), plane2_local_kernel below compares each
+// query with its row's occupied slots only, staged in shared memory.  Else
+// (a1)-(b) run again with MIX2 and no stash, reusing the scratch after
+// plane 1's probe (stream order).
+#define G_THREADS 256
+#define G_TILE 2048          // queries a block sorts at once
+#define G_LOAD 4             // tile entries a thread loads at once
+#define G_KEY_BITS 13        // counting-sort keys of a tile: 8,192, 32 KiB
+#define G_LOCAL_BYTES (32 * 1024)
+#define G_PART_THREADS 512   // (a1) and (a4)
+#define G_PART_QPT 8         // queries a thread has in flight there
+#define G_PART_TILE (G_PART_THREADS * G_PART_QPT)
+#define G_COARSE_BITS 6      // a partition past 64 bins takes two levels
+#define G_COARSE (1 << G_COARSE_BITS)
+#define EMPTY32 0xFFFFFFFFu
+
+__device__ __forceinline__ int group_bin(u64 mixed, int m, int shift) {
+  return (int)(mixed >> (64 - m) >> shift);
+}
+
+// (a1): cnt [nbins, gridDim.x]; bin = bucket >> bshift, the query's mixed
+// key x * MIX from q or, from the level before (PAIRS), as carried
+template <u64 MIX, bool PAIRS>
+__global__ void __launch_bounds__(G_PART_THREADS)
+group_count_kernel(const u64* __restrict__ src, long long Q, long long slice,
+                   int m, int bshift, int nbins, int* __restrict__ cnt) {
+  extern __shared__ int hist[];  // [nbins]
+  for (int j = threadIdx.x; j < nbins; j += G_PART_THREADS) hist[j] = 0;
+  __syncthreads();
+  long long i0 = blockIdx.x * slice, i1 = min(Q, i0 + slice);
+  for (long long base = i0; base < i1; base += G_PART_THREADS * G_PART_QPT) {
+    u64 mx[G_PART_QPT];
+#pragma unroll
+    for (int u = 0; u < G_PART_QPT; ++u) {
+      long long i = base + u * G_PART_THREADS + threadIdx.x;
+      mx[u] = i < i1 ? (PAIRS ? __ldg(src + i) : __ldg(src + i) * MIX) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < G_PART_QPT; ++u)
+      if (base + u * G_PART_THREADS + threadIdx.x < i1)
+        atomicAdd(&hist[group_bin(mx[u], m, bshift)], 1);
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < nbins; j += G_PART_THREADS)
+    cnt[(long long)j * gridDim.x + blockIdx.x] = hist[j];
+}
+
+// (a2): each row of cnt [nbins, G] scanned in place, its sum to tot[bin]
+__global__ void __launch_bounds__(G_THREADS)
+group_offsets_kernel(int* __restrict__ cnt, int G, int nbins,
+                     int* __restrict__ tot) {
+  int j = blockIdx.x * (G_THREADS / 32) + (threadIdx.x >> 5);
+  int lane = threadIdx.x & 31;
+  if (j >= nbins) return;  // uniform across the warp
+  int* c = cnt + (long long)j * G;
+  int run = 0;
+  for (int b0 = 0; b0 < G; b0 += 32) {
+    int v = b0 + lane < G ? c[b0 + lane] : 0;
+    int incl = v;
+    for (int o = 1; o < 32; o <<= 1) {
+      int u = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += u;
+    }
+    if (b0 + lane < G) c[b0 + lane] = run + incl - v;
+    run += __shfl_sync(0xffffffffu, incl, 31);
+  }
+  if (lane == 0) tot[j] = run;
+}
+
+// (a3): ctr = [nbins] totals, [nbins] bin starts, [nbins + 1] tile starts
+// (the last is the tile count)
+__global__ void __launch_bounds__(1024)
+group_tiles_kernel(int* __restrict__ ctr, int nbins) {
+  __shared__ int part[2][32];
+  const int* tot = ctr;
+  int* start = ctr + nbins;
+  int* ts = ctr + 2 * nbins;
+  int per = (nbins + 1023) / 1024;
+  int b0 = threadIdx.x * per, b1 = min(b0 + per, nbins);
+  int own_q = 0, own_t = 0;
+  for (int b = b0; b < b1; ++b) {
+    own_q += tot[b];
+    own_t += (tot[b] + G_TILE - 1) / G_TILE;
+  }
+  int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int iq = own_q, it = own_t;
+  for (int o = 1; o < 32; o <<= 1) {
+    int u = __shfl_up_sync(0xffffffffu, iq, o);
+    int v = __shfl_up_sync(0xffffffffu, it, o);
+    if (lane >= o) {
+      iq += u;
+      it += v;
+    }
+  }
+  if (lane == 31) {
+    part[0][warp] = iq;
+    part[1][warp] = it;
+  }
+  __syncthreads();
+  int rq = iq - own_q, rt = it - own_t;
+  for (int w = 0; w < warp; ++w) {
+    rq += part[0][w];
+    rt += part[1][w];
+  }
+  for (int b = b0; b < b1; ++b) {
+    start[b] = rq;
+    ts[b] = rt;
+    rq += tot[b];
+    rt += (tot[b] + G_TILE - 1) / G_TILE;
+  }
+  if (threadIdx.x == 1023) ts[nbins] = rt;
+}
+
+// Exclusive scan of a[0, n) in shared memory by a whole block of THREADS
+// threads (part: THREADS / 32 ints).
+template <int THREADS>
+__device__ __forceinline__ void block_exclusive_scan(int* a, int n,
+                                                     int* part) {
+  int per = (n + THREADS - 1) / THREADS;
+  int j0 = threadIdx.x * per, j1 = min(j0 + per, n);
+  int own = 0;
+  for (int j = j0; j < j1; ++j) own += a[j];
+  int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int incl = own;
+  for (int o = 1; o < 32; o <<= 1) {
+    int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) part[warp] = incl;
+  __syncthreads();
+  int run = incl - own;
+  for (int w = 0; w < warp; ++w) run += part[w];
+  for (int j = j0; j < j1; ++j) {
+    int c = a[j];
+    a[j] = run;
+    run += c;
+  }
+  __syncthreads();
+}
+
+// (a4): each query's index and mixed key appended to its bin.  From q
+// (!PAIRS) it also answers the stash into out[qi] (out null: plane 2,
+// which has none); from the level before (PAIRS) the index is src_list's.
+// A tile of G_PART_TILE queries is first sorted by bin in shared memory,
+// so each bin's run of the tile leaves as consecutive stores, not stores
+// scattered a query at a time across the bins.
+template <u64 MIX, bool PAIRS>
+__global__ void __launch_bounds__(G_PART_THREADS)
+group_scatter_kernel(const u64* __restrict__ src,
+                     const int* __restrict__ src_list, long long Q,
+                     long long slice, int m, int bshift, int nbins,
+                     const int* __restrict__ cnt, const int* __restrict__ ctr,
+                     const u64* __restrict__ stash_keys,
+                     const int* __restrict__ stash_labels,
+                     int* __restrict__ out, int* __restrict__ list,
+                     u64* __restrict__ keys) {
+  extern __shared__ u64 p_smem[];
+  u64* st_key = p_smem;                      // [G_PART_TILE] staged keys
+  int* st_qi = (int*)(st_key + G_PART_TILE);  // [G_PART_TILE] staged indices
+  int* cur = st_qi + G_PART_TILE;             // [nbins] the block's cursors
+  int* off = cur + nbins;                     // [nbins + 1] tile offsets
+  int* delta = off + nbins + 1;               // [nbins] cursor - offset
   __shared__ u64 sk[STASH_CAP];
   __shared__ int sl[STASH_CAP];
-  load_stash(stash_keys, stash_labels, sk, sl);
-  int lane = threadIdx.x & 31;
-  long long qi = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
-  if (qi >= Q) return;
+  __shared__ int n_stash;
+  __shared__ int part[G_PART_THREADS / 32];
+  const int* start = ctr + nbins;
+  for (int j = threadIdx.x; j < nbins; j += G_PART_THREADS)
+    cur[j] = start[j] + cnt[(long long)j * gridDim.x + blockIdx.x];
+  if (!PAIRS && out && threadIdx.x == 0) {  // drop the padding: EMPTY keys
+    int n = 0;                              // that carry label 0
+    for (int j = 0; j < STASH_CAP; ++j) {
+      u64 key = stash_keys[j];
+      if (key != EMPTY64 || stash_labels[j] != 0) {
+        sk[n] = key;
+        sl[n++] = stash_labels[j];
+      }
+    }
+    n_stash = n;
+  }
+  long long i0 = blockIdx.x * slice, i1 = min(Q, i0 + slice);
+  for (long long base = i0; base < i1; base += G_PART_TILE) {
+    const int n = (int)min((long long)G_PART_TILE, i1 - base);
+    // the tile's bins: all, or from the level before (in coarse order) the
+    // fine bins of its first to its last entry's coarse bin
+    int b0 = 0, b1 = nbins;
+    if (PAIRS) {
+      b0 = group_bin(__ldg(src + base), m, bshift) >> G_COARSE_BITS
+                                                   << G_COARSE_BITS;
+      b1 = min(nbins, ((group_bin(__ldg(src + base + n - 1), m, bshift) >>
+                        G_COARSE_BITS) + 1) << G_COARSE_BITS);
+    }
+    for (int j = b0 + threadIdx.x; j < b1; j += G_PART_THREADS) off[j] = 0;
+    __syncthreads();  // also publishes the stash and the cursors
+    u64 mixed[G_PART_QPT];  // the thread's loads in flight together
+    int qi[G_PART_QPT], rank[G_PART_QPT];
+#pragma unroll
+    for (int u = 0; u < G_PART_QPT; ++u) {
+      int e = u * G_PART_THREADS + threadIdx.x;
+      if (e < n) {
+        mixed[u] = __ldg(src + base + e);
+        qi[u] = PAIRS ? __ldg(src_list + base + e) : (int)(base + e);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < G_PART_QPT; ++u) {
+      if (u * G_PART_THREADS + threadIdx.x >= n) continue;
+      if (!PAIRS) {
+        u64 x = mixed[u];
+        if (out) {
+          int best = 0;
+          for (int j = 0; j < n_stash; ++j)
+            if (sk[j] == x) best = max(best, sl[j]);
+          out[qi[u]] = best;
+        }
+        mixed[u] = x * MIX;
+      }
+      rank[u] = atomicAdd(&off[group_bin(mixed[u], m, bshift)], 1);
+    }
+    __syncthreads();
+    // the tile's offsets; each bin's cursor moves past its run, and delta
+    // maps a staged slot to its place in the list
+    block_exclusive_scan<G_PART_THREADS>(off + b0, b1 - b0, part);
+    for (int j = b0 + threadIdx.x; j < b1; j += G_PART_THREADS) {
+      delta[j] = cur[j] - off[j];
+      cur[j] += (j + 1 < b1 ? off[j + 1] : n) - off[j];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < G_PART_QPT; ++u) {
+      if (u * G_PART_THREADS + threadIdx.x >= n) continue;
+      int p = off[group_bin(mixed[u], m, bshift)] + rank[u];
+      st_key[p] = mixed[u];
+      st_qi[p] = qi[u];
+    }
+    __syncthreads();
+    for (int p = threadIdx.x; p < n; p += G_PART_THREADS) {
+      u64 key = st_key[p];
+      int pos = delta[group_bin(key, m, bshift)] + p;
+      list[pos] = st_qi[p];
+      keys[pos] = key;
+    }
+    __syncthreads();  // before the next tile reuses off and the staging
+  }
+}
 
-  u64 x = q[qi];
-  u64 x1 = x * MIX1, x2 = x * MIX2;
-  u64 b1 = x1 >> (64 - m1), b2 = x2 >> (64 - m2);
-  int best = scan_row(slots1 + b1 * (u64)(2 * C), C,
-                      x1 & ((1ull << (64 - m1)) - 1), lb, lane);
-  best = max(best, scan_row(slots2 + b2 * (u64)(2 * C), C,
-                            x2 & ((1ull << (64 - m2)) - 1), lb, lane));
-  best = warp_max(max(best, scan_stash(sk, sl, x, lane)));
-  if (lane == 0) out[qi] = best;
+// The largest hit label of one query in its row (0 = none), the lane
+// alone scanning the hi half (through L1) and a lo word behind each
+// matching hi word.
+__device__ __forceinline__ int scan_row_alone(const u32* __restrict__ row,
+                                              int C, u32 t_lo, u32 t_hi,
+                                              u32 above) {
+  int best = 0;
+  for (int c = 0; c < C; ++c)
+    if (__ldg(row + C + c) == t_hi) {
+      u32 xl = __ldg(row + c) ^ t_lo;
+      if ((xl & above) == 0) best = max(best, (int)xl);
+    }
+  return best;
+}
+
+// The lane's 4 words of a row's hi half (vec, C <= 128), EMPTY past it.
+__device__ __forceinline__ uint4 load_hi4(const u32* __restrict__ row, int C,
+                                          int lane) {
+  return lane < (C >> 2)
+             ? __ldg(reinterpret_cast<const uint4*>(row + C) + lane)
+             : make_uint4(EMPTY32, EMPTY32, EMPTY32, EMPTY32);
+}
+
+// Next run start of a segment from the mask of those not taken yet.
+__device__ __forceinline__ int take_start(unsigned& rest, int end) {
+  if (!rest) return end;
+  int s = __ffs(rest) - 1;
+  rest &= rest - 1;
+  return s;
+}
+
+// (b).  Tile t of bin b is that bin's part of list/keys.  A tile sorts by
+// local row >> kshift (kshift > 0 only
+// past 2^G_KEY_BITS rows a bin: runs then interleave a few rows, each
+// change of row reloads it, still exact).
+__global__ void __launch_bounds__(G_THREADS)
+group_probe_kernel(const u32* __restrict__ slots,
+                   const int* __restrict__ list, const u64* __restrict__ keys,
+                   const int* __restrict__ ctr, int nbins, int shift,
+                   int kshift, int* __restrict__ out, int C, int m, int lb,
+                   int vec) {
+  extern __shared__ u64 g_smem[];
+  u64* s_t = g_smem;                                 // [G_TILE] qlow << lb
+  int* s_qi = (int*)(s_t + G_TILE);                  // [G_TILE] query index
+  int* s_row = s_qi + G_TILE;                        // [G_TILE] local row
+  unsigned short* s_rank = (unsigned short*)(s_row + G_TILE);  // [G_TILE]
+  unsigned short* perm = s_rank + G_TILE;            // [G_TILE] sorted
+  int* cnt = (int*)(perm + G_TILE);                  // [1 << (shift-kshift)]
+  __shared__ int part[G_THREADS / 32];
+  const int nkeys = 1 << (shift - kshift);
+  const int* start = ctr + nbins;
+  const int* ts = ctr + 2 * nbins;
+  const int n_tiles = __ldg(ts + nbins);
+  const u64 qmask = (1ull << (64 - m)) - 1;  // 1 <= m <= 62
+  const u64 rmask = (1ull << shift) - 1;
+  const u32 above = ~((1u << lb) - 1);
+  const bool fast = vec && C <= 128;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const u64 stride = 2 * (u64)C;
+  // a lo word read at the end of the last segment, used in the next
+  int pend_qi = -1;
+  u32 pend_lo = 0, pend_tlo = 0;
+
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    int lo = 0, hi = nbins - 1;  // the bin with ts[bin] <= t < ts[bin + 1]
+    while (lo < hi) {
+      int mid = (lo + hi + 1) >> 1;
+      if (__ldg(ts + mid) <= t) lo = mid;
+      else hi = mid - 1;
+    }
+    const int k = t - __ldg(ts + lo);
+    const long long base = (long long)__ldg(start + lo) + (long long)k * G_TILE;
+    const int n = min(G_TILE, __ldg(ctr + lo) - k * G_TILE);
+    const long long row0 = (long long)lo << shift;
+
+    for (int j = threadIdx.x; j < nkeys; j += G_THREADS) cnt[j] = 0;
+    __syncthreads();
+    for (int e0 = threadIdx.x; e0 < n; e0 += G_THREADS * G_LOAD) {
+      int qi[G_LOAD];  // G_LOAD of the thread's loads in flight at once
+      u64 mx[G_LOAD];
+#pragma unroll
+      for (int u = 0; u < G_LOAD; ++u) {
+        int e = e0 + u * G_THREADS;
+        if (e < n) {
+          qi[u] = __ldg(list + base + e);
+          mx[u] = __ldg(keys + base + e);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < G_LOAD; ++u) {
+        int e = e0 + u * G_THREADS;
+        if (e < n) {
+          int r = (int)((mx[u] >> (64 - m)) & rmask);
+          s_qi[e] = qi[u];
+          s_row[e] = r;
+          s_t[e] = (mx[u] & qmask) << lb;
+          s_rank[e] = (unsigned short)atomicAdd(&cnt[r >> kshift], 1);
+        }
+      }
+    }
+    __syncthreads();
+    block_exclusive_scan<G_THREADS>(cnt, nkeys, part);
+    for (int e = threadIdx.x; e < n; e += G_THREADS)
+      perm[cnt[s_row[e] >> kshift] + s_rank[e]] = (unsigned short)e;
+    __syncthreads();
+
+    for (int s0 = warp * 32; s0 < n; s0 += G_THREADS) {  // warp-uniform
+      const int end = min(n - s0, 32);
+      const bool mine = lane < end;
+      const int e = mine ? perm[s0 + lane] : 0;
+      const int r = mine ? s_row[e] : -1;
+      const u64 my_t = mine ? s_t[e] : 0;
+      const u32 t_lo = (u32)my_t, t_hi = (u32)(my_t >> 32);
+      const u32* my_row = slots + (u64)(row0 + max(r, 0)) * stride;
+      if (!fast) {  // a lane per query
+        int best = mine ? scan_row_alone(my_row, C, t_lo, t_hi, above) : 0;
+        if (best > 0) atomicMax(out + s_qi[e], best);
+        continue;
+      }
+      {  // the rows of the warp's next segment on their way to L2
+        int s1 = s0 + G_THREADS + lane;
+        int r1 = s1 < n ? s_row[perm[s1]] : -1;
+        int p1 = __shfl_up_sync(0xffffffffu, r1, 1);
+        if (r1 >= 0 && (lane == 0 || r1 != p1))
+          asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(
+                           slots + (u64)(row0 + r1) * stride + C),
+                       "r"(C * 4)
+                       : "memory");
+      }
+      const int prev = __shfl_up_sync(0xffffffffu, r, 1);
+      unsigned rest =
+          __ballot_sync(0xffffffffu, mine && (lane == 0 || r != prev));
+      rest &= rest - 1;  // lane 0 starts the first run
+      // runs [a, b), [b, c), [c, ...) with their rows' hi halves in flight
+      int a = 0, b = take_start(rest, end), c = take_start(rest, end);
+      auto row_of = [&](int s) {  // the row of the run starting at s
+        return slots +
+               (u64)(row0 + __shfl_sync(0xffffffffu, r, s & 31)) * stride;
+      };
+      uint4 ha = load_hi4(row_of(a), C, lane);
+      uint4 hb = b < end ? load_hi4(row_of(b), C, lane) : ha;
+      uint4 hc = c < end ? load_hi4(row_of(c), C, lane) : ha;
+      if (pend_qi >= 0) {  // the last segment's lo word, now arrived
+        u32 xl = pend_lo ^ pend_tlo;
+        if ((xl & above) == 0 && xl) atomicMax(out + pend_qi, (int)xl);
+        pend_qi = -1;
+      }
+      unsigned hits = 0;  // lane j: the lanes holding query j's t_hi
+      for (;;) {
+#pragma unroll 4
+        for (int j = a; j < b; ++j) {
+          u32 qhi = __shfl_sync(0xffffffffu, t_hi, j);
+          unsigned any = __ballot_sync(
+              0xffffffffu,
+              ha.x == qhi || ha.y == qhi || ha.z == qhi || ha.w == qhi);
+          if (lane == j) hits = any;
+        }
+        if (b >= end) break;
+        a = b;
+        b = c;
+        c = take_start(rest, end);
+        ha = hb;
+        hb = hc;
+        if (c < end) hc = load_hi4(row_of(c), C, lane);
+      }
+      if (hits) {  // each lane its own query: which words matched (from L1)
+        int word = -1, n_match = 0;
+        for (unsigned h = hits; h; h &= h - 1) {
+          int l = __ffs(h) - 1;
+          uint4 v = __ldg(reinterpret_cast<const uint4*>(my_row + C) + l);
+          u32 w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (w[u] == t_hi) {
+              word = 4 * l + u;
+              ++n_match;
+            }
+        }
+        if (n_match == 1) {  // its lo word, used in the next segment
+          pend_qi = s_qi[e];
+          pend_lo = __ldg(my_row + word);
+          pend_tlo = t_lo;
+        } else {  // a false hi match beside another: rare
+          int best = scan_row_alone(my_row, C, t_lo, t_hi, above);
+          if (best > 0) atomicMax(out + s_qi[e], best);
+        }
+      }
+    }
+    __syncthreads();  // before the next tile rewrites the shared arrays
+  }
+  if (pend_qi >= 0) {
+    u32 xl = pend_lo ^ pend_tlo;
+    if ((xl & above) == 0 && xl) atomicMax(out + pend_qi, (int)xl);
+  }
+}
+
+// K8's plane 2 in the local form: every block stages the plane's occupied
+// slots in shared memory, compacted row by row (an EMPTY slot's hi half
+// never equals t_hi, so skipping it is exact), and a thread per query
+// compares its t_hi against its row's occupied slots only: plane 2 holds
+// the few keys plane 1 overflows, so its rows are nearly empty.  The max
+// goes into out[qi] after plane 1's probe, in stream order.
+__global__ void __launch_bounds__(G_THREADS)
+plane2_local_kernel(const u32* __restrict__ slots2, const u64* __restrict__ q,
+                    int* __restrict__ out, long long Q, int C, int m2,
+                    int lb) {
+  extern __shared__ u32 p2_smem[];
+  const int rows = 1 << m2, pitch = C + 1;  // odd: rows on distinct banks
+  u32* shi = p2_smem;                       // [rows, pitch] occupied hi words
+  u32* slo = shi + rows * pitch;            // [rows, pitch] their lo words
+  int* scnt = (int*)(slo + rows * pitch);   // [rows]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < rows; r += G_THREADS / 32) {  // a warp a row
+    const u32* row = slots2 + (u64)r * 2 * C;
+    int n = 0;
+#pragma unroll 4
+    for (int c0 = 0; c0 < C; c0 += 32) {
+      int c = c0 + lane;
+      u32 h = c < C ? __ldg(row + C + c) : EMPTY32;
+      unsigned occ = __ballot_sync(0xffffffffu, h != EMPTY32);
+      if (h != EMPTY32) {
+        int at = r * pitch + n + __popc(occ & ((1u << lane) - 1));
+        shi[at] = h;
+        slo[at] = __ldg(row + c);
+      }
+      n += __popc(occ);
+    }
+    if (lane == 0) scnt[r] = n;
+  }
+  __syncthreads();
+  const u64 qmask = (1ull << (64 - m2)) - 1;  // 1 <= m2 <= 13
+  const u32 above = ~((1u << lb) - 1);
+  const long long stride = (long long)gridDim.x * G_THREADS;
+  for (long long i0 = blockIdx.x * (long long)G_THREADS + threadIdx.x; i0 < Q;
+       i0 += 4 * stride) {
+    u64 x[4];  // four queries' loads in flight
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      x[u] = i0 + u * stride < Q ? __ldg(q + i0 + u * stride) : 0;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      long long i = i0 + u * stride;
+      if (i >= Q) break;
+      u64 mixed = x[u] * MIX2;
+      int r = (int)(mixed >> (64 - m2));
+      u64 t = (mixed & qmask) << lb;
+      u32 t_lo = (u32)t, t_hi = (u32)(t >> 32);
+      int best = 0;
+      for (int j = r * pitch, e = j + scnt[r]; j < e; ++j)
+        if (shi[j] == t_hi) {
+          u32 xl = slo[j] ^ t_lo;
+          if ((xl & above) == 0) best = max(best, (int)xl);
+        }
+      if (best > 0 && best > out[i]) out[i] = best;
+    }
+  }
 }
 
 // ---------------------------------------------------------------- K3, K4
@@ -858,6 +1321,125 @@ static int allow_smem(const void* kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// A persistent grid: the blocks of `threads` threads and `smem` bytes of
+// dynamic shared memory that the SMs hold at once (after the opt-in).
+static int occupancy_grid(const void* kernel, int threads, size_t smem,
+                          long long* grid) {
+  if (int rc = allow_smem(kernel, smem)) return rc;
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaError_t e = cudaGetDevice(&dev)) return (int)e;
+  if (cudaError_t e =
+          cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
+    return (int)e;
+  if (cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, threads, smem))
+    return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  *grid = (long long)sms * per_sm;
+  return 0;
+}
+
+// K2/K8 (b) on a persistent grid: as many blocks as the SMs hold at the
+// tile's shared memory, and no more than max_tiles.
+static int launch_group_probe(const void* slots, const int* list,
+                              const u64* keys, const int* ctr, int nbins,
+                              int shift, int kshift, int* out, int C, int m,
+                              int lb, long long max_tiles, cudaStream_t st) {
+  size_t smem = (size_t)G_TILE * 20 + (sizeof(int) << (shift - kshift));
+  long long grid = 0;
+  if (int rc = occupancy_grid((const void*)group_probe_kernel,
+                              G_THREADS, smem, &grid))
+    return rc;
+  int vec = (C % 4 == 0) && ((uintptr_t)slots % 16 == 0);
+  group_probe_kernel<<<(unsigned)lmin(grid, max_tiles), G_THREADS, smem,
+                       st>>>(
+      (const u32*)slots, list, keys, ctr, nbins, shift, kshift, out, C, m, lb,
+      vec);
+  return (int)cudaGetLastError();
+}
+
+// One level of the partition: (a1), (a2), (a3), (a4) into nbins bins of
+// bucket >> bshift, from q (src_list null) or from the level before.
+template <u64 MIX>
+static int group_level(const u64* src, const int* src_list, long long Q,
+                       int m, int bshift, int nbins, int G,
+                       const void* stash_keys, const void* stash_labels,
+                       int* out_stash, int* list, u64* keys, int* cnt,
+                       int* ctr, cudaStream_t st) {
+  long long slice = (Q + G - 1) / G;
+  size_t hist = (size_t)nbins * sizeof(int);
+  if (src_list)
+    group_count_kernel<MIX, true><<<G, G_PART_THREADS, hist, st>>>(
+        src, Q, slice, m, bshift, nbins, cnt);
+  else
+    group_count_kernel<MIX, false><<<G, G_PART_THREADS, hist, st>>>(
+        src, Q, slice, m, bshift, nbins, cnt);
+  if (cudaError_t e = cudaGetLastError()) return (int)e;
+  group_offsets_kernel<<<(nbins + G_THREADS / 32 - 1) / (G_THREADS / 32),
+                         G_THREADS, 0, st>>>(cnt, G, nbins, ctr);
+  if (cudaError_t e = cudaGetLastError()) return (int)e;
+  group_tiles_kernel<<<1, 1024, 0, st>>>(ctr, nbins);
+  if (cudaError_t e = cudaGetLastError()) return (int)e;
+  size_t stage = (size_t)G_PART_TILE * 12 + (3 * nbins + 1) * sizeof(int);
+  const void* sc = src_list ? (const void*)group_scatter_kernel<MIX, true>
+                            : (const void*)group_scatter_kernel<MIX, false>;
+  if (int rc = allow_smem(sc, stage)) return rc;
+  if (src_list)
+    group_scatter_kernel<MIX, true><<<G, G_PART_THREADS, stage, st>>>(
+        src, src_list, Q, slice, m, bshift, nbins, cnt, ctr, nullptr,
+        nullptr, nullptr, list, keys);
+  else
+    group_scatter_kernel<MIX, false><<<G, G_PART_THREADS, stage, st>>>(
+        src, nullptr, Q, slice, m, bshift, nbins, cnt, ctr,
+        (const u64*)stash_keys, (const int*)stash_labels, out_stash, list,
+        keys);
+  return (int)cudaGetLastError();
+}
+
+// K2/K8 for one plane of 2^m rows: the partition, in two levels past
+// G_COARSE bins (first by bin >> G_COARSE_BITS, then, from that coarse
+// order, by bin: each level then writes long runs a bin), then (b).  G
+// blocks partition; scratch (nothing zeroed): list/keys [2, Q] (the two
+// levels' outputs), cnt [nbins * G], ctr [3 * nbins + 1].  (shift, nbins,
+// kshift) is the plan (kernels.group_bins); the stash is answered into
+// out_stash (null: none).
+template <u64 MIX>
+static int group_plane(const void* slots, const void* stash_keys,
+                       const void* stash_labels, const void* q,
+                       int* out_stash, int* out, long long Q, int C, int m,
+                       int lb, int shift, int nbins, int kshift, int G,
+                       int* list, u64* keys, int* cnt, int* ctr,
+                       cudaStream_t st) {
+  long long rows = 1LL << m;
+  if (nbins < 1 || nbins > K7_MAX_BINS || shift < 0 || shift > m ||
+      kshift < 0 || kshift > shift || shift - kshift > G_KEY_BITS ||
+      ((rows - 1) >> shift) >= nbins || G < 1)
+    return (int)cudaErrorInvalidValue;
+  const u64* src = (const u64*)q;
+  const int* src_list = nullptr;
+  int* l2 = list;
+  u64* k2 = keys;
+  if (nbins > G_COARSE) {
+    int cb = shift + G_COARSE_BITS;
+    if (int rc = group_level<MIX>(src, nullptr, Q, m, cb,
+                                  (int)(((rows - 1) >> cb) + 1), G,
+                                  stash_keys, stash_labels, out_stash, list,
+                                  keys, cnt, ctr, st))
+      return rc;
+    src = keys;
+    src_list = list;
+    out_stash = nullptr;
+    l2 = list + Q;
+    k2 = keys + Q;
+  }
+  if (int rc = group_level<MIX>(src, src_list, Q, m, shift, nbins, G,
+                                stash_keys, stash_labels, out_stash, l2, k2,
+                                cnt, ctr, st))
+    return rc;
+  return launch_group_probe(slots, l2, k2, ctr, nbins, shift, kshift, out, C,
+                            m, lb, (Q + G_TILE - 1) / G_TILE + nbins, st);
+}
+
 extern "C" {
 
 const char* clark_cuda_error_string(int code) {
@@ -876,16 +1458,18 @@ int launch_window_canonicals(const void* words, const void* vwords, void* q,
   return (int)cudaGetLastError();
 }
 
+// K2's launches (group_plane): five, or nine past 64 bins.
 int launch_probe(const void* slots, const void* stash_keys,
                  const void* stash_labels, const void* q, void* out,
-                 long long Q, int C, int m1, int lb, void* stream) {
+                 long long Q, int C, int m1, int lb, int shift, int nbins,
+                 int kshift, int G, void* list, void* keys, void* cnt,
+                 void* ctr, void* stream) {
   if (Q == 0) return 0;
-  unsigned grid;
-  if (int rc = grid_for(Q * 32, 256, &grid)) return rc;
-  probe_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const u32*)slots, (const u64*)stash_keys, (const int*)stash_labels,
-      (const u64*)q, (int*)out, Q, C, m1, lb);
-  return (int)cudaGetLastError();
+  if (Q > 0x7FFFFFFFLL || m1 < 1 || m1 > 62) return (int)cudaErrorInvalidValue;
+  return group_plane<MIX1>(slots, stash_keys, stash_labels, q, (int*)out,
+                           (int*)out, Q, C, m1, lb, shift, nbins, kshift, G,
+                           (int*)list, (u64*)keys, (int*)cnt, (int*)ctr,
+                           (cudaStream_t)stream);
 }
 
 // K7's three launches.  list [Q] int32 and ctr [2 * nbins + 2] int32
@@ -926,17 +1510,42 @@ int launch_probe_chunk(const void* slots, const void* stash_keys,
   return (int)cudaGetLastError();
 }
 
+// K8: plane 1 as K2, then plane 2 in its form (kernels.plane2_form):
+// local2 (plane2_local_kernel, one launch over q) or grouped (as plane 1,
+// the scratch reused).
 int launch_probe_dense(const void* slots1, const void* slots2,
                        const void* stash_keys, const void* stash_labels,
                        const void* q, void* out, long long Q, int C, int m1,
-                       int m2, int lb, void* stream) {
+                       int m2, int lb, int shift1, int nbins1, int kshift1,
+                       int local2, int shift2, int nbins2, int kshift2, int G,
+                       void* list, void* keys, void* cnt, void* ctr,
+                       void* stream) {
   if (Q == 0) return 0;
-  unsigned grid;
-  if (int rc = grid_for(Q * 32, 256, &grid)) return rc;
-  probe_dense_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const u32*)slots1, (const u32*)slots2, (const u64*)stash_keys,
-      (const int*)stash_labels, (const u64*)q, (int*)out, Q, C, m1, m2, lb);
-  return (int)cudaGetLastError();
+  if (Q > 0x7FFFFFFFLL || m1 < 1 || m1 > 62 || m2 < 1 || m2 > 62 ||
+      (local2 && (m2 > G_KEY_BITS || ((size_t)4 * C << m2) > G_LOCAL_BYTES)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (int rc = group_plane<MIX1>(slots1, stash_keys, stash_labels, q,
+                                 (int*)out, (int*)out, Q, C, m1, lb, shift1,
+                                 nbins1, kshift1, G, (int*)list, (u64*)keys,
+                                 (int*)cnt, (int*)ctr, st))
+    return rc;
+  if (local2) {
+    size_t smem = ((size_t)8 * (C + 1) + 4) << m2;
+    long long grid = 0;
+    if (int rc = occupancy_grid((const void*)plane2_local_kernel, G_THREADS,
+                                smem, &grid))
+      return rc;
+    plane2_local_kernel<<<(unsigned)lmin(grid, (Q + G_THREADS - 1) /
+                                                   G_THREADS),
+                          G_THREADS, smem, st>>>(
+        (const u32*)slots2, (const u64*)q, (int*)out, Q, C, m2, lb);
+    return (int)cudaGetLastError();
+  }
+  return group_plane<MIX2>(slots2, stash_keys, stash_labels, q, nullptr,
+                           (int*)out, Q, C, m2, lb, shift2, nbins2, kshift2,
+                           G, (int*)list, (u64*)keys, (int*)cnt, (int*)ctr,
+                           st);
 }
 
 int launch_top2(const void* lab, long long R, long long W, void* total,

@@ -46,22 +46,26 @@ def probe_transient_bytes(window_budget: int, pipeline_depth: int,
 
     One batch at a time is inside the device step, which holds per window
     slot (window_budget slots at most): its canonical value q (8 B), the
-    probe's labels (4 B), the chunk probe's (K7) list of in-chunk query
-    indices (4 B), the miss mask (1 B) and the masked labels (4 B) --
-    21 B.  Up to pipeline_depth + 3 batches are in flight (the
+    probe's labels (4 B), the probe's scratch (K2 and K8: each query's index
+    and mixed key for each of the partition's two levels, 24 B, K8's two
+    planes reusing it in turn; K7 at other times: its 4-B list of in-chunk
+    indices), the miss mask (1 B) and the masked labels (4 B) -- 41 B.  Up
+    to pipeline_depth + 3 batches are in flight (the
     dispatch queue, the one being dispatched, two in the fetch pool), each
     holding its packed rows (3 bits per slot, rounded up to 3/8 B), its
     per-window output grid (the sorted u16 grid or a cycle's u16 labels,
     2 B per slot) and, where the run counts per target, its count matrix
     of at most `counts_bytes`:
 
-        21 * window_budget
+        41 * window_budget
         + (pipeline_depth + 3) * (window_budget * 19 // 8 + counts_bytes)
 
     The JAX package counts a [Q, C] row gather here instead; the kernels
-    read rows in place and materialize none."""
+    read rows in place and materialize none.  K2's and K8's per-block bin
+    counts (4,096 x 2 ints per streaming multiprocessor, ~4.3 MB on an
+    H100) fit inside RESERVED."""
     per_batch = window_budget * 19 // 8 + counts_bytes
-    return 21 * window_budget + (pipeline_depth + 3) * per_batch
+    return 41 * window_budget + (pipeline_depth + 3) * per_batch
 
 
 def auto_db_cycles(table_bytes: int, transient: int,

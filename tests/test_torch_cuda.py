@@ -16,7 +16,7 @@ import chip_smoke
 from jn_cuclark_tpu_torch import engine
 from jn_cuclark_tpu_torch.engine import Classifier
 from jn_cuclark_tpu_torch.io import dbformat
-from jn_cuclark_tpu_torch.ops import kernels, score
+from jn_cuclark_tpu_torch.ops import kernels, radix_table, score
 from jn_cuclark_tpu_torch.params import Profile
 from jn_cuclark_tpu_torch.utils import native
 
@@ -32,11 +32,11 @@ def dev():
 
 def test_kernels_equal_their_twins(dev):
     kernels.reset_launches()
-    assert chip_smoke.check_kernels(dev) == 12 + 3 + 6 + 6 + 12 + 9 + 29 + 3
-    assert kernels.LAUNCHES == {"window_canonicals": 15, "probe": 3, "top2": 6,
-                                "sort_top2": 6, "counts_top2": 12,
+    assert chip_smoke.check_kernels(dev) == 12 + 10 + 6 + 6 + 12 + 9 + 29 + 9
+    assert kernels.LAUNCHES == {"window_canonicals": 15, "probe": 10,
+                                "top2": 6, "sort_top2": 6, "counts_top2": 12,
                                 "aggregate": 9, "probe_chunk": 29,
-                                "probe_dense": 6}
+                                "probe_dense": 18}
 
 
 def test_goldens_through_the_kernels(dev, tmp_path):
@@ -127,3 +127,32 @@ def test_cycled_uploads_under_concurrent_calls(dev, tmp_path, monkeypatch):
         got = list(ex.map(lambda _: b"".join(clf.classify_bytes(fa)[0]),
                           range(6)))
     assert got == [want] * 6
+
+
+def test_grouped_probes_on_hot_rows(dev):
+    """K2 and K8 against their twins where one row carries 20,000 queries
+    and every query of a second call lies on one row; each call counts one
+    launch whatever its passes."""
+    rng = np.random.default_rng(11)
+    keys = np.unique(rng.integers(0, (1 << 64) - 2, size=60_000,
+                                  dtype=np.uint64))
+    labels1 = rng.integers(1, 31, size=len(keys)).astype(np.int32)
+    table = radix_table.to_device(radix_table.build(keys, labels1, c=128), dev)
+    dense = radix_table.to_device(
+        radix_table.build_dense(keys, labels1, c=128), dev)
+    hot = chip_smoke.hot_row_queries(rng, keys, table.m1, 20_000)
+    for q in (np.concatenate([keys, hot]), hot[:3000]):
+        q = torch.from_numpy(q.view(np.int64)).to(dev)
+        kernels.reset_launches()
+        got = radix_table.probe(table, q)
+        got_dense = radix_table.probe_dense(dense, q)
+        assert kernels.LAUNCHES["probe"] == kernels.LAUNCHES["probe_dense"] == 1
+        assert torch.equal(got, radix_table.probe_plain(
+            table.slots, table.stash_keys, table.stash_labels, q,
+            m1=table.m1, lb=table.lb))
+        assert torch.equal(got_dense, radix_table.probe_dense_plain(
+            dense.slots1, dense.slots2, dense.stash_keys, dense.stash_labels,
+            q, m1=dense.m1, m2=dense.m2, lb=dense.lb))
+    assert torch.equal(radix_table.probe(
+        table, torch.from_numpy(keys.view(np.int64)).to(dev)).cpu(),
+        torch.from_numpy(labels1))

@@ -248,7 +248,7 @@ def test_auto_db_cycles_equals_jax(monkeypatch):
 def test_transient_formula():
     wb, depth, counts = 1 << 23, 6, 5 << 20
     assert memory.probe_transient_bytes(wb, depth, counts) == (
-        21 * wb + (depth + 3) * (wb * 19 // 8 + counts))
+        41 * wb + (depth + 3) * (wb * 19 // 8 + counts))
 
 
 @pytest.fixture(scope="module")

@@ -2,7 +2,8 @@
 the CPU: build_dense, dense_nbytes, recover_keys, the dense cache shared by
 both packages, the dense probe (twin of kernel K8), classify_batch_dense,
 the dense-or-cycle policy, and dense CSVs byte-equal to the port's resident
-run and to the JAX package's dense run, all exact."""
+run and to the JAX package's dense run, all exact; the dense probe also on
+forged hi collisions in both planes and on a hot row."""
 
 import shutil
 
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from jn_cuclark_tpu import params as jparams
 from jn_cuclark_tpu.db import builder
 from jn_cuclark_tpu.engine import BatchPlan as JBatchPlan
@@ -95,6 +97,33 @@ def test_probe_dense_plain_equals_jax(built):
         torch.zeros_like(tbl.stash_labels),
         torch.from_numpy(keys.view(np.int64)), m1=got.m1, lb=got.lb).numpy()
     assert (in_plane1 == 0).any()
+
+
+@pytest.mark.parametrize("kbits", [54, 64])  # k = 27 and k = 32 keys
+def test_probe_dense_plain_hi_collisions_and_hot_rows_equal_jax(kbits):
+    """Slots forged in both planes whose hi half equals a missing query's
+    t_hi (a miss only the lo word tells apart: K8 reads lo words only
+    behind a matching hi word), and one plane-1 row carrying 5,000
+    queries (K8 reads a row once for all of its queries)."""
+    rng = np.random.default_rng(kbits + 1)
+    keys = np.unique(rng.integers(0, (1 << kbits) - 2, size=60_000,
+                                  dtype=np.uint64))[:29_000]
+    labels1 = rng.integers(1, 201, size=len(keys)).astype(np.int32)
+    table = jrt.build_dense(keys, labels1, c=16)
+    miss = rng.integers(0, (1 << 64) - 2, size=4000, dtype=np.uint64)
+    assert chip_smoke.forge_hi_collisions(table, miss[:2000], plane=1) > 500
+    assert chip_smoke.forge_hi_collisions(table, miss[2000:], plane=2) > 500
+    hot = chip_smoke.hot_row_queries(rng, keys, table.m1, 5000)
+    q = np.concatenate([keys, miss, hot])
+    want = np.asarray(jrt.probe_dense(
+        jnp.asarray(table.slots1), jnp.asarray(table.slots2),
+        jnp.asarray(table.stash_keys), jnp.asarray(table.stash_labels),
+        jnp.asarray(q), **table.meta))
+    lab = radix_table.probe_dense(radix_table.to_device(table, "cpu"),
+                                  torch.from_numpy(q.view(np.int64)))
+    assert np.array_equal(lab.numpy(), want)
+    assert np.array_equal(want[: len(keys)], labels1)
+    assert not want[len(keys) : len(keys) + len(miss)].any()
 
 
 def test_recover_keys_equals_jax(built):

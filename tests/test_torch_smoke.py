@@ -20,7 +20,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_phases_on_cpu(tmp_path, monkeypatch):
     dev = torch.device("cpu")
-    assert chip_smoke.check_kernels(dev) == 12 + 3 + 6 + 6 + 12 + 9 + 29 + 3
+    assert chip_smoke.check_kernels(dev) == 12 + 10 + 6 + 6 + 12 + 9 + 29 + 9
     assert chip_smoke.check_goldens(dev, str(tmp_path)) == 6
     assert chip_smoke.check_golden_dbs(dev, str(tmp_path)) == 3
     dense = chip_smoke.check_dense_targets(dev, str(tmp_path), n_reads=40)
