@@ -22,7 +22,8 @@ raises and exits non-zero before the result lines:
              collisions, a row of 12,000 queries, every query on one row,
              Q = 1, Q no multiple of the tile, a bin past one tile, C = 2,
              4, 6, 16 and 128, and K8's plane 2 on both sides of its form
-             edge
+             edge; K2 and K8's plane 1 at 2^26 rows (C = 2, 1 GiB), where
+             a tile sorts its queries by pairs of rows (kshift = 1)
   3 goldens  classify the reference's golden reads on the card (single-end,
              --extended, paired): the six CSVs must be byte-equal to
              tests/golden; rebuild three golden DBs with device="cuda"
@@ -41,6 +42,12 @@ raises and exits non-zero before the result lines:
              plain one.  Kernel launch counts are reset just before each
              path (the device build, each timed classify, and phase 3's
              65,535-target run) and read after it
+  4d mesh    the same DB and reads on meshes of the card repeated 4 times
+             (parallel/mesh.py), each path after a warm-up: a db mesh of 4
+             resident (plain, --extended, the pairs), the db mesh in 3
+             cycles (counts, then labels), a dp mesh of 4 (plain,
+             --extended) and a 2 x 2 dp x db mesh (plain, --extended); every
+             CSV byte-equal to phase 4's
   4b out-of-core  the same reads against the same DB four more ways, each
              after a warm-up: 4 cycles (counts strategy) plain and
              --extended, 3 cycles (labels strategy), CLARK_TPU_DENSE=force,
@@ -70,6 +77,7 @@ does on the CPU.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gzip
 import json
 import os
@@ -95,6 +103,7 @@ from jn_cuclark_tpu_torch.ops import (
     radix_table,
     score,
 )
+from jn_cuclark_tpu_torch.parallel.mesh import Mesh
 from jn_cuclark_tpu_torch.params import Profile
 from jn_cuclark_tpu_torch.utils import memory, native, profiling
 
@@ -499,6 +508,50 @@ def _k8_group_cases(rng):
         : 3 * kernels.GROUP_TILE + 17], keys, labels1)
 
 
+# 2^26 rows: the first plane size at which kernels.group_bins gives
+# kshift = 1.  ~600,000 keys at 1/64 of a key a row, in rows of C = 2:
+# 1 GiB.
+KSHIFT_M1 = 26
+
+
+def kshift_keys(seed: int = 0):
+    """(rng, keys, labels1, pairs): 600,000 random keys and one more in
+    each row of 4,096 adjacent row pairs (pairs[i], pairs[i] + 1) of a
+    2^KSHIFT_M1-row table, labels 1-300."""
+    rng = np.random.default_rng(seed)
+    pairs = rng.choice(1 << (KSHIFT_M1 - 1), size=4096, replace=False) * 2
+    keys = np.unique(np.concatenate([
+        rng.integers(0, (1 << 64) - 2, size=600_000, dtype=np.uint64),
+        keys_in_rows(rng, np.concatenate([pairs, pairs + 1]), KSHIFT_M1)]))
+    labels1 = rng.integers(1, 301, size=len(keys)).astype(np.int32)
+    return rng, keys, labels1, pairs
+
+
+def kshift_cases(seed: int = 0):
+    """(label, (RadixTable or DenseTable, q, keys, labels1)) on the host:
+    K2's standard table and K8's dense plane 1, each of 2^26 rows of C = 2
+    (kshift = 1: a tile counting-sorts its queries by pairs of rows, so a
+    run interleaves two rows); q holds the stored keys, misses and 12,000
+    queries on one pair of rows, permuted."""
+    rng, keys, labels1, pairs = kshift_keys(seed)
+    hot = hot_row_queries(rng, keys, KSHIFT_M1, 12_000,
+                          rows=np.array([pairs[0], pairs[0] + 1]))
+    q = np.concatenate([keys, hot, rng.integers(
+        0, (1 << 64) - 2, size=200_000, dtype=np.uint64)])
+    q = q[rng.permutation(len(q))]
+    # 1/64 of a key a row in both layouts (build_dense's load counts keys a
+    # slot, hence 1/128 at C = 2): n * 64 rows, 2^26 after rounding up
+    table = radix_table.build(keys, labels1, c=2, load=1 / 64)
+    if table.m1 != KSHIFT_M1 or kernels.group_bins(1 << table.m1)[2] != 1:
+        raise AssertionError(f"K2 kshift case: m1 = {table.m1}")
+    yield "kshift=1 m1=26 c=2", (table, q, keys, labels1)
+    del table
+    dense = radix_table.build_dense(keys, labels1, c=2, load=1 / 128)
+    if dense.m1 != KSHIFT_M1:
+        raise AssertionError(f"K8 kshift case: m1 = {dense.m1}")
+    yield "plane 1 kshift=1 m1=26 c=2", (dense, q, keys, labels1)
+
+
 def k7_labels_case(seed: int = 0):
     """(words, vwords, RadixTable) on the host: reads of a genome whose
     k-mers carry labels 40,000-45,000 at k = 31, for the cycled steps'
@@ -526,9 +579,11 @@ def _agg_tensors(case, dev):
             torch.from_numpy(pg).to(dev), lelement)
 
 
-def check_kernels(dev) -> int:
+def check_kernels(dev, big_tables: bool = True) -> int:
     """Every phase-2 case through the kernels on `dev` against the plain
-    twins on the same inputs; returns the number of cases."""
+    twins on the same inputs; returns the number of cases.  big_tables
+    runs the two 1 GiB cases of kshift_cases (a rehearsal on the CPU leaves
+    them out)."""
     n = 0
     for label, (w, v, k, pc) in k1_cases():
         w, v = w.to(dev), v.to(dev)
@@ -610,6 +665,26 @@ def check_kernels(dev) -> int:
         hit = radix_table.probe_dense(tbl, _i64(keys).to(dev))
         if not torch.equal(hit.cpu(), torch.from_numpy(labels1)):
             raise AssertionError(f"K8 {label}: a stored key missed")
+        n += 1
+    for label, (table, q, keys, labels1) in (kshift_cases() if big_tables
+                                             else ()):
+        tbl, q = radix_table.to_device(table, dev), _i64(q).to(dev)
+        del table
+        if isinstance(tbl, radix_table.DeviceDenseTable):
+            label, probe = "K8 " + label, radix_table.probe_dense
+            want = radix_table.probe_dense_plain(
+                tbl.slots1, tbl.slots2, tbl.stash_keys, tbl.stash_labels, q,
+                m1=tbl.m1, m2=tbl.m2, lb=tbl.lb)
+        else:
+            label, probe = "K2 " + label, radix_table.probe
+            want = radix_table.probe_plain(tbl.slots, tbl.stash_keys,
+                                           tbl.stash_labels, q, m1=tbl.m1,
+                                           lb=tbl.lb)
+        _same(label, [probe(tbl, q)], [want])
+        if not torch.equal(probe(tbl, _i64(keys).to(dev)).cpu(),
+                           torch.from_numpy(labels1)):
+            raise AssertionError(f"{label}: a stored key missed")
+        del tbl, q, want
         n += 1
     return n
 
@@ -1119,6 +1194,84 @@ def run_out_of_core(dev, tmp: str, prof: Profile, clf, fa: bytes, lens,
     return m, dense
 
 
+def _mesh_layout(clf) -> dict:
+    """A meshed classifier's shards, cycles and device bytes a shard."""
+    if clf.sharded is not None:
+        return dict(shards=clf.mesh.size, db_shards=clf.sharded.ndb,
+                    cycles=clf.db_cycles, shard_bytes=clf.sharded.shard_bytes)
+    held = next(iter(clf.shards.values()))
+    return dict(shards=clf.mesh.size, db_shards=clf.mesh.shape[-1]
+                if len(clf.mesh.axis_names) == 2 else 1, cycles=1,
+                shard_bytes=int(held.nbytes))
+
+
+def run_mesh(dev, tmp: str, prof: Profile, lens, launches: dict,
+             n: int = 4):
+    """Phase 4d: the phase-4 DB and reads through Classifier.load(mesh=)
+    on meshes of `dev` repeated n times, each path after a warm-up run and
+    its CSV byte-equal to phase 4's: (a) a db mesh of n, resident: plain,
+    extended and the pairs; (b) the db mesh in 3 cycles, the counts then
+    the labels strategy; (c) a dp mesh of n: plain and extended; (d) a
+    2 x n/2 dp x db mesh: plain and extended.  Returns the metrics."""
+    reads, res = os.path.join(tmp, "reads.fa"), os.path.join(tmp, "res")
+    mates = os.path.join(tmp, "r1.fq"), os.path.join(tmp, "r2.fq")
+    want = {}
+    for kind, suffix in (("plain", ""), ("extended", "_ext"),
+                         ("paired", "_pair")):
+        with open(res + suffix + ".csv", "rb") as f:
+            want[kind] = f.read()
+    lookups = float(np.maximum(lens - prof.default_k + 1, 0).sum())
+    m = {}
+
+    def path(name, clf, kind="plain"):
+        out = os.path.join(tmp, name.replace(" ", "_"))
+        src, kw = reads, dict(extended=kind == "extended")
+        if kind == "paired":
+            src, kw = mates[0], dict(paired_path=mates[1])
+        clf.classify_file(src, out, **kw)  # warm-up
+        with profiling.collect() as ph:
+            stats, wall = _path(launches, name,
+                                lambda: clf.classify_file(src, out, **kw))
+        with open(out + ".csv", "rb") as f:
+            if f.read() != want[kind]:
+                raise AssertionError(f"{name}: the CSV differs from phase 4's")
+        m[name] = dict(wall_s=wall, **_mesh_layout(clf),
+                       phase_s=dict(ph.totals))
+        if kind == "paired":
+            m[name]["pairs_per_s"] = stats["reads"] / wall
+        else:
+            m[name]["reads_per_s"] = stats["reads"] / wall
+            m[name]["kmer_lookups_per_s"] = lookups / wall
+
+    devs = [dev] * n
+    db_mesh = Mesh(devs, ("db",))
+    clf, m["load_db_s"] = _load(dev, tmp, prof, mesh=db_mesh, mesh_mode="db")
+    path("mesh db", clf)
+    path("mesh db extended", clf, "extended")
+    path("mesh db paired", clf, "paired")
+    del clf
+    clf, m["load_db_cycles3_s"] = _load(
+        dev, tmp, prof, mesh=db_mesh, mesh_mode="db", db_cycles=3,
+        plan=BatchPlan(cycle_strategy="counts"))
+    for strategy in ("counts", "labels"):
+        clf.plan = dataclasses.replace(clf.plan, cycle_strategy=strategy)
+        if clf._cycled_strategy([lens]) != strategy:
+            raise AssertionError(f"the db mesh's cycles ran {strategy!r}?")
+        path(f"mesh db cycled {strategy}", clf)
+    del clf
+    clf, m["load_dp_s"] = _load(dev, tmp, prof, mesh=Mesh(devs, ("dp",)))
+    path("mesh dp", clf)
+    path("mesh dp extended", clf, "extended")
+    del clf
+    clf, m["load_dp_x_db_s"] = _load(
+        dev, tmp, prof, mesh=Mesh([devs[: n // 2], devs[n // 2 :]],
+                                  ("dp", "db")))
+    path("mesh dp x db", clf)
+    path("mesh dp x db extended", clf, "extended")
+    m["reads"], m["devices"] = len(lens), [str(d) for d in devs]
+    return m
+
+
 def run_refseq(dev, tmp: str, launches: dict, n_targets: int = 5000,
                glen: int = 50_000, n_reads: int = 200_000, seed: int = 7):
     """Phase 4c, the RefSeq shape (benchmarks/refseq_scale.py: 5,000
@@ -1509,6 +1662,13 @@ def main() -> int:
 
         t = time.perf_counter()
         printed = set(launches)
+        metrics = run_mesh(dev, scale_dir, params.FULL, lens, launches)
+        _phase("4d mesh", t, launches={
+            name: n for name, n in launches.items() if name not in printed},
+            **metrics)
+
+        t = time.perf_counter()
+        printed = set(launches)
         metrics, dense_clf = run_out_of_core(dev, scale_dir, params.FULL, clf,
                                              fa, lens, launches)
         _phase("4b out-of-core", t, **metrics)
@@ -1562,6 +1722,17 @@ PATH_KERNELS = {
     "refseq resident": {"window_canonicals", "probe", "top2"},
     "refseq cycled": {"window_canonicals", "probe_chunk", "top2"},
     "refseq dense": {"window_canonicals", "probe_dense", "top2"},
+    "mesh db": {"window_canonicals", "probe_chunk", "top2"},
+    "mesh db extended": {"window_canonicals", "probe_chunk", "sort_top2"},
+    "mesh db paired": {"window_canonicals", "probe_chunk", "top2"},
+    "mesh db cycled counts": {"window_canonicals", "probe_chunk",
+                              "counts_top2"},
+    "mesh db cycled labels": {"window_canonicals", "probe_chunk", "top2"},
+    "mesh dp": {"window_canonicals", "probe", "top2"},
+    "mesh dp extended": {"window_canonicals", "probe", "sort_top2"},
+    "mesh dp x db": {"window_canonicals", "probe_chunk", "top2"},
+    "mesh dp x db extended": {"window_canonicals", "probe_chunk",
+                              "sort_top2"},
 }
 
 

@@ -10,8 +10,9 @@ first use; the device step runs hand-written CUDA kernels
 (ops/kernels/classify.cu) on a CUDA device and their plain-PyTorch twins on
 the CPU.
 
-Ported so far: `classify` of single-end FASTA/FASTQ against one resident
-standard radix table on one device (ROADMAP items A1-A4, B1-B3).
+Ported so far: `classify` (single-end, paired-end, extended; the table
+resident, dense or cycled; over a mesh of devices) and `db build`
+(README's port section lists the slices).
 """
 
 from . import params  # noqa: F401

@@ -6,10 +6,14 @@ Subcommands (reference equivalents):
 
 Classification (single-end, paired-end, --extended, list mode with
 --jobs) runs on one device, the table resident or streamed in
---db-cycles chunks.  The other `db` workflows (set-targets,
-update-taxonomy, download-*, clean) and the other subcommands of
-`jn_cuclark_tpu.cli` (abundance, merge, report, verify, cluster) wait for
-ROADMAP A9-A10; the `db` ones are listed and raise.
+--db-cycles chunks, or over several devices of one process: `-d N` splits
+the reads over N devices, `-d N --shard-db` splits the table's rows (which
+composes with --db-cycles), and `--dp M` with --shard-db does both on an
+M x N/M mesh.  `--device` picks cuda (the first N cards; N more than the
+machine has raises) or cpu (N CPU shards).  The other `db` workflows
+(set-targets, update-taxonomy, download-*, clean) and the other
+subcommands of `jn_cuclark_tpu.cli` (abundance, merge, report, verify,
+cluster) wait for ROADMAP A9-A10; the `db` ones are listed and raise.
 
 Run `python -m jn_cuclark_tpu_torch.cli classify --help` for flags.
 """
@@ -47,13 +51,34 @@ def _profile_from_args(args, cfg=None):
     return prof
 
 
-def _check_slice(args):
-    """Reject flags whose modes are not ported yet, naming the ROADMAP item."""
-    from .engine import _not_ported
+def _mesh_from_args(args):
+    """(mesh or None, mesh_mode) from -d/--dp/--shard-db, read as the JAX
+    package's CLI reads them, over --device's devices."""
+    from .parallel.mesh import make_mesh, make_mesh2d
 
-    if args.shard_db or args.dp or (args.devices and args.devices > 1):
-        raise _not_ported("multi-device classification (-d/--dp/--shard-db)",
-                          "A9")
+    mesh_mode = "db" if args.shard_db else "dp"
+    if args.dp and not args.shard_db:
+        raise SystemExit(
+            "--dp selects the data-parallel width of a 2-D dp x db mesh and "
+            "requires --shard-db (for pure read sharding use -d N)"
+        )
+    try:
+        if args.dp and args.dp > 1:
+            # 2-D composition: reads over 'dp' x table over 'db'
+            import torch
+
+            total = args.devices or (torch.cuda.device_count()
+                                     if args.device.startswith("cuda") else 1)
+            if total % args.dp:
+                raise SystemExit(
+                    f"--dp {args.dp} must divide the device count {total}")
+            return make_mesh2d(args.dp, total // args.dp,
+                               device=args.device), "dp"
+        if args.devices and args.devices > 1:
+            return make_mesh(args.devices, device=args.device), mesh_mode
+    except ValueError as e:  # fewer devices than asked for
+        raise SystemExit(str(e)) from e
+    return None, mesh_mode
 
 
 def _parse_cycles(v) -> int | str:
@@ -77,6 +102,7 @@ def _load_classifier(args):
             f"{args.db}: not a clark database directory (no config.json)"
         )
     prof = _profile_from_args(args, cfg)
+    mesh, mesh_mode = _mesh_from_args(args)
     return Classifier.load(
         cfg.subdb,
         args.targets or cfg.targets,
@@ -91,6 +117,8 @@ def _load_classifier(args):
         gap=args.gap if args.gap is not None else cfg.gap,
         device=args.device,
         db_cycles=_parse_cycles(args.db_cycles),
+        mesh=mesh,
+        mesh_mode=mesh_mode,
     )
 
 
@@ -113,14 +141,14 @@ def cmd_classify(args):
         raise SystemExit(
             "Device out of memory during classification.\n"
             f"  {str(e).splitlines()[0][:200]}\n"
-            "Try: --db-cycles N (stream the DB in N chunks).  --db-cycles "
-            "auto (the default) budgets the DB from the card's memory; if "
-            "the limit was misdetected, set CLARK_TPU_DEVICE_MEM_BYTES."
+            "Try: --db-cycles N (stream the DB in N chunks) or --shard-db "
+            "(split the DB index over devices).  --db-cycles auto (the "
+            "default) budgets the DB from the card's memory; if the limit "
+            "was misdetected, set CLARK_TPU_DEVICE_MEM_BYTES."
         ) from e
 
 
 def _cmd_classify(args):
-    _check_slice(args)
     if args.threads:
         os.environ["OMP_NUM_THREADS"] = str(args.threads)
     clf = _load_classifier(args)
@@ -300,18 +328,24 @@ def build_parser() -> argparse.ArgumentParser:
                     "report (MIN/MAX/AVG) to stderr")
     pc.add_argument("--gzipped", action="store_true", help="inputs are gzipped")
     pc.add_argument("-d", "--devices", type=int, default=None,
-                    help="devices to shard over (not ported yet)")
+                    help="devices to shard over: the reads, or with "
+                    "--shard-db the DB index (the first N of --device's "
+                    "kind; N CPU shards with --device cpu)")
     pc.add_argument("--dp", type=int, default=None,
-                    help="data-parallel mesh width (not ported yet)")
+                    help="with --shard-db: data-parallel width of a 2-D "
+                    "dp x db mesh (reads sharded over dp, table rows over "
+                    "db = devices/dp)")
     pc.add_argument("--shard-db", action="store_true",
-                    help="shard the DB index over devices (not ported yet)")
+                    help="shard the DB index over devices (for DBs larger "
+                    "than one device's memory) instead of sharding reads")
     pc.add_argument("--db-cycles", default="auto",
                     help="stream the DB index in N chunks; auto (default) "
                     "streams only a table above the device budget, or keeps "
                     "it resident in the dense layout where that fits")
     pc.add_argument("--device", default="cuda",
                     help="torch device: cuda (default, hand-written kernels) "
-                    "or cpu (plain-PyTorch twins)")
+                    "or cpu (plain-PyTorch twins); with -d, the kind of the "
+                    "mesh's devices")
     pc.add_argument("--profile", action="store_true",
                     help="print phase timing summary")
     pc.set_defaults(fn=cmd_classify)
@@ -321,7 +355,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.cmd == "classify" and not args.objects and not args.paired:
-        print("classify: provide -O <reads>", file=sys.stderr)
+        print("classify: provide -O <reads> or -P <r1> <r2>", file=sys.stderr)
         return 1
     return args.fn(args)
 

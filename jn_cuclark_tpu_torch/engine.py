@@ -25,8 +25,12 @@ A table larger than the card's budget (utils/memory.py) stays resident in
 the dense two-plane layout when that fits (K8), else streams from the host
 in row chunks, one pass of every batch per chunk (K7), with labels or
 counts accumulated on the host between passes; `classify_files` runs
-several samples through each chunk upload.  Device meshes and the flat
-path raise NotImplementedError naming their ROADMAP item.
+several samples through each chunk upload.
+
+Over several devices (`mesh=`, parallel/mesh.py): mesh_mode="db" shards the
+table's rows over the mesh (each shard's range optionally cycled), "dp"
+puts the table on every device and splits each batch's rows, and a
+two-axis mesh does both.  The flat path raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -280,10 +284,14 @@ def _resolve_device(device) -> torch.device:
 
 
 class Classifier:
-    """Single-device CLARK classifier: the radix table resident (standard
-    or dense layout), or streamed from the host in cycles."""
+    """CLARK classifier: the radix table resident on one device (standard
+    or dense layout) or streamed from the host in cycles, or spread over
+    the devices of a mesh (parallel/mesh.py)."""
 
     dense_table = None  # the host DenseTable when the dense layout engaged
+    sharded = None  # the ShardedRadixTable of a db mesh
+    shards = None  # a dp or dp x db mesh's tables on its devices
+    _mesh_step = None  # the batch step of a dp or dp x db mesh
 
     def __init__(
         self,
@@ -300,24 +308,57 @@ class Classifier:
         prebuilt_table: radix_table.RadixTable | None = None,
         mesh=None,
         packed: bool = True,
+        mesh_mode: str = "dp",
     ):
-        if mesh is not None:
-            raise _not_ported("classification over a device mesh", "A9")
         if not packed:
             raise NotImplementedError(
                 "the flat sorted-array path (packed=False) is not ported: "
                 "ROADMAP lists it under 'Do not port'"
             )
+        if mesh_mode not in ("dp", "db"):
+            raise ValueError(f"mesh_mode must be 'dp' or 'db', got "
+                             f"{mesh_mode!r}")
         self.profile = profile
         self.k = k
         self.target_names = target_names
         self.n_targets = len(target_names) - 1  # names include NA at 0
         self.plan = plan or BatchPlan()
-        self.device = _resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = _resolve_device(device)
+        else:
+            # batches land on the mesh's first device, which gathers the
+            # results; `device` is not used
+            for d in set(mesh.devices):
+                _resolve_device(d)
+            self.device = mesh.devices[0]
         auto_cycles = db_cycles in ("auto", 0, None)
         self.db_cycles = db_cycles = 1 if auto_cycles else int(db_cycles)
         if db_cycles < 1:
             raise ValueError(f"db_cycles must be positive, got {db_cycles}")
+        self.names = native.NamesBuffer(self.target_names)
+        # cycled chunks stream through two pinned slices (each with its
+        # last copy's event) under this lock, on a side stream per device
+        self._upload_lock = threading.Lock()
+        self._staging = None
+        self._copy_streams: dict = {}
+
+        if mesh is not None and mesh_mode == "db":
+            # the table's rows sharded over the mesh, each shard's range
+            # optionally cycled; planned and filled from the raw keys
+            from .parallel.mesh import ShardedRadixTable
+
+            keys = np.asarray(canonical, dtype=np.uint64)
+            labs1 = np.asarray(labels, dtype=np.int32) + 1
+            if not len(keys) and prebuilt_table is not None:
+                keys, labs1 = radix_table.recover_keys(prebuilt_table)
+            self.sharded = ShardedRadixTable(
+                mesh, keys, labs1, self.n_targets, k,
+                db_cycles="auto" if auto_cycles else db_cycles,
+                transient=self._transient_bytes())
+            self.db_cycles = self.sharded.n_cycles
+            self.table = None
+            return
 
         table = prebuilt_table
         if table is None and index_cache is not None and os.path.exists(
@@ -337,15 +378,28 @@ class Classifier:
                     )
                 except OSError:
                     pass
-        self.names = native.NamesBuffer(self.target_names)
         budget = None
         if auto_cycles:
             # the reference derives parts x cycles from the device's memory
             # less RESERVED (CuClarkDB.cu:526-565): a table above the budget
-            # cycles with no flags
+            # cycles with no flags.  A dp x db mesh splits the table's rows
+            # over db; a dp mesh holds all of it on each device
+            n_shards = (mesh.shape[-1] if mesh is not None
+                        and len(mesh.axis_names) == 2 else 1)
             db_cycles, budget = memory.auto_db_cycles(
-                table.nbytes, self._transient_bytes(), device=self.device
+                table.nbytes, self._transient_bytes(), device=self.device,
+                n_shards=n_shards,
             )
+            if db_cycles > 1 and mesh is not None:
+                per_dev = table.nbytes // n_shards
+                raise RuntimeError(
+                    f"database needs {per_dev >> 20} MB per device but "
+                    f"the device budget is {budget >> 20} MB, and "
+                    "out-of-core cycling does not compose with this "
+                    "mesh mode. Use --shard-db (DB rows sharded over "
+                    "the mesh, composes with cycling) or drop the mesh "
+                    "and let --db-cycles auto stream the table."
+                )
             self.db_cycles = db_cycles
             if db_cycles > 1:
                 print(
@@ -357,24 +411,37 @@ class Classifier:
         # dense two-plane residency: a table between 1x and ~2x the budget
         # stays resident (two row reads per probe) instead of re-streaming
         # every pass.  CLARK_TPU_DENSE: auto (default) / 0 (never) / force
-        # (even when the standard table fits, or cycles were asked for)
+        # (even when the standard table fits, or cycles were asked for);
+        # never with a mesh
         dense_env = os.environ.get("CLARK_TPU_DENSE", "auto")
         forced = dense_env == "force"
-        if forced or (dense_env not in ("0", "off") and auto_cycles
-                      and db_cycles > 1):
+        if mesh is None and (forced or (dense_env not in ("0", "off")
+                                        and auto_cycles and db_cycles > 1)):
             if self._try_dense(canonical, labels, table, index_cache,
                                index_sig, budget, forced) is not None:
                 self.db_cycles = 1
                 return
         if db_cycles > 1:
+            if mesh is not None:
+                raise NotImplementedError(
+                    "db_cycles with a dp mesh is not supported; use "
+                    "mesh_mode='db' (sharded rows compose with cycling)"
+                )
             # out of core: the chunks stay on the host, one uploaded per pass
             self.table = None
             self.table_meta = dict(m1=table.m1, lb=table.lb)
             self.table_chunks = radix_table.chunk_table(table, db_cycles)
             self.stash = radix_table.put_stash(
                 table.stash_keys, table.stash_labels, self.device)
-            self._upload_lock = threading.Lock()
-            self._staging = None  # (pinned slice, its copy's event) x 2
+            return
+        if mesh is not None:
+            # a two-axis mesh shards the rows over db and the reads over dp;
+            # a one-axis mesh shards the reads
+            from .parallel.mesh import shard_reads, shard_reads_db
+
+            place = shard_reads_db if len(mesh.axis_names) == 2 else shard_reads
+            self.shards, self._mesh_step = place(mesh, table, self.n_targets, k)
+            self.table = None
             return
         self.table = radix_table.to_device(table, self.device)
 
@@ -439,6 +506,13 @@ class Classifier:
         return dense
 
     def batch_fn(self, words, vwords, extended=False, probe_cols=None):
+        """(total, ibest, best, sbest, extra) of a resident batch on
+        self.device (a mesh's outputs may carry pad rows past the batch)."""
+        if self.sharded is not None:
+            return self.sharded.classify(words, vwords, extended, probe_cols)
+        if self._mesh_step is not None:
+            return self._mesh_step(words, vwords, extended=extended,
+                                   probe_cols=probe_cols)
         step = (device_pipeline.classify_batch_dense
                 if self.dense_table is not None
                 else device_pipeline.classify_batch)
@@ -463,6 +537,7 @@ class Classifier:
         db_cycles: int | str = "auto",
         mesh=None,
         packed: bool = True,
+        mesh_mode: str = "dp",
     ) -> "Classifier":
         if isinstance(targets, str):
             targets = parse_targets(targets)
@@ -488,8 +563,10 @@ class Classifier:
                 file=sys.stderr,
             )
         # device-index cache: keyed on a content signature of the DB files;
-        # valid only for unsampled loads (sampling changes the key set)
-        use_cache = sampling_factor == 1
+        # valid only for unsampled loads (sampling changes the key set).  A
+        # db mesh plans and fills its shards from the raw keys
+        use_cache = sampling_factor == 1 and not (
+            mesh is not None and mesh_mode == "db")
         cache = stem + ".idx.npz"
         table = None
         sig = radix_table.db_signature(stem) if use_cache else None
@@ -519,6 +596,7 @@ class Classifier:
             prebuilt_table=table,
             mesh=mesh,
             packed=packed,
+            mesh_mode=mesh_mode,
         )
 
     # -------------------------------------------------------------- classify
@@ -770,8 +848,7 @@ class Classifier:
         max_stride = max((int(_stride_tiers(ln).max())
                           for ln in lengths_list if len(ln)), default=0)
         max_windows = max(max_stride - (self.k - 1), 0)
-        lab_bytes = (2 if self.n_targets < 65535 else 4) * len(
-            self.table_chunks)
+        lab_bytes = (2 if self.n_targets < 65535 else 4) * self.db_cycles
         return ("labels" if max_windows * lab_bytes < 4 * (self.n_targets + 1)
                 else "counts")
 
@@ -812,38 +889,43 @@ class Classifier:
 
     def _cycle_passes(self, strategy):
         """(n_passes, begin_pass(j) -> batch step, end_pass) over the
-        table's chunks.
+        table's chunks: the host chunks of one device, or each cycle's
+        chunks of every db shard of a ShardedRadixTable.
 
         On a CUDA device a chunk streams to the card on a side stream
         (_upload_chunk); the compute stream waits on the copy's event, and
         record_stream keeps the caching allocator from handing the chunk's
-        memory to another upload while kernels still read it.  Chunk j+1
-        uploads in a worker thread while chunk j's batches probe (the
+        memory to another upload while kernels still read it.  Pass j+1's
+        chunks upload in a worker thread while pass j's batches probe (the
         reference's swapDbParts overlaps its uploads the same way,
-        CuClarkDB.cu:776-815), so two chunks are resident at the peak,
-        which auto_db_cycles budgets for; CLARK_TPU_PREFETCH_CHUNKS=0 turns
-        the overlap off."""
-        dev = self.device
-        cuda = dev.type == "cuda"
-        chunks = self.table_chunks
-        n_passes = len(chunks)
-        sk, sl = self.stash
+        CuClarkDB.cu:776-815), so two passes' chunks are resident at the
+        peak, which auto_db_cycles budgets for; CLARK_TPU_PREFETCH_CHUNKS=0
+        turns the overlap off.  Each call keeps its own chunks, so
+        concurrent classify calls on one Classifier do not share them."""
+        sharded = self.sharded
+        n_passes = self.db_cycles
         narrow = self.n_targets < 65535
 
-        def upload(j):
-            host = chunks[j]["slots"].view(np.int32)
-            if not cuda:
+        def put(host, dev):
+            host = host.view(np.int32)
+            if dev.type != "cuda":
                 return torch.from_numpy(host), None
             with maybe_phase("chunk_upload"):
-                return self._upload_chunk(host)
+                return self._upload_chunk(host, dev)
+
+        def upload(j):
+            """{shard: (slots, the copy's event or None)} of pass j."""
+            if sharded is not None:
+                return sharded.upload_cycle(j, put)
+            return {None: put(self.table_chunks[j]["slots"], self.device)}
 
         prefetch = (n_passes > 1 and
                     os.environ.get("CLARK_TPU_PREFETCH_CHUNKS", "1") != "0")
         pre: dict = {"j": None, "thread": None, "out": None}
-        # the current chunk lives in this cell, not in the returned step:
-        # end_pass clears it so chunk j is released before begin_pass(j+1)
-        # starts the upload of chunk j+2 (at most two chunks resident)
-        cur: dict = {"slots": None}
+        # the current chunks live in this cell, not in the returned step:
+        # end_pass clears it so pass j's chunks are released before
+        # begin_pass(j+1) starts the upload of pass j+2's
+        cur: dict = {"chunks": None}
 
         def begin_pass(j):
             if pre["thread"] is not None and pre["j"] == j:
@@ -864,65 +946,78 @@ class Classifier:
                 pre["j"] = j + 1
                 pre["thread"] = threading.Thread(target=work, daemon=True)
                 pre["thread"].start()
-            slots, done = got
-            if cuda:
-                stream = torch.cuda.current_stream(dev)
-                stream.wait_event(done)
-                slots.record_stream(stream)
-            cur["slots"] = slots
-            start, use_stash = chunks[j]["start_row"], chunks[j]["use_stash"]
+            for slots, done in got.values():
+                if done is not None:
+                    stream = torch.cuda.current_stream(slots.device)
+                    stream.wait_event(done)
+                    slots.record_stream(stream)
+            cur["chunks"] = {key: slots for key, (slots, _) in got.items()}
+            if sharded is not None:
+                def step(words, vwords, probe_cols=None):
+                    return sharded.cycle_step(cur["chunks"], j, strategy,
+                                              words, vwords, probe_cols)
+                return step
+            sk, sl = self.stash
+            chunk = self.table_chunks[j]
+            start, use_stash = chunk["start_row"], chunk["use_stash"]
             kw = dict(k=self.k, **self.table_meta)
 
             if strategy == "labels":
                 def step(words, vwords, probe_cols=None):
                     return device_pipeline.classify_batch_labels_chunk(
-                        cur["slots"], sk, sl, words, vwords, start,
+                        cur["chunks"][None], sk, sl, words, vwords, start,
                         use_stash, narrow=narrow, probe_cols=probe_cols, **kw,
                     )
             else:
                 def step(words, vwords, probe_cols=None):
                     return device_pipeline.classify_batch_counts_chunk(
-                        cur["slots"], sk, sl, words, vwords, start,
+                        cur["chunks"][None], sk, sl, words, vwords, start,
                         use_stash, n_targets=self.n_targets,
                         probe_cols=probe_cols, **kw,
                     )
             return step
 
         def end_pass():
-            cur["slots"] = None
+            cur["chunks"] = None
 
         return n_passes, begin_pass, end_pass
 
-    def _upload_chunk(self, host: np.ndarray):
-        """Copy one host chunk to the card on the side stream, through two
-        pinned STAGING_SLICE_BYTES slices in turn (one fills while the
-        other copies); returns (the device tensor, the copy's event) once
-        the copy is done.  The lock makes concurrent classify calls on one
-        Classifier take turns with the slices."""
-        dev = self.device
+    def _upload_chunk(self, host: np.ndarray, dev: torch.device):
+        """Copy one host chunk to the card `dev` on that device's side
+        stream, through two pinned STAGING_SLICE_BYTES slices in turn (one
+        fills while the other copies); returns (the device tensor, the
+        copy's event) once the copy is done.  The lock makes concurrent
+        calls on one Classifier, and the shards of a mesh, take turns with
+        the slices."""
         flat = host.reshape(-1)
         with self._upload_lock:
             if self._staging is None:
-                self._copy_stream = torch.cuda.Stream(dev)
                 self._staging = [
-                    (torch.empty(STAGING_SLICE_BYTES // 4, dtype=torch.int32,
-                                 pin_memory=True), torch.cuda.Event())
+                    [torch.empty(STAGING_SLICE_BYTES // 4, dtype=torch.int32,
+                                 pin_memory=True), None]
                     for _ in range(2)
                 ]
+            stream = self._copy_streams.get(dev)
+            if stream is None:
+                stream = self._copy_streams[dev] = torch.cuda.Stream(dev)
             n = self._staging[0][0].numel()
-            with torch.cuda.stream(self._copy_stream):
+            with torch.cuda.stream(stream):
                 slots = torch.empty(host.shape, dtype=torch.int32, device=dev)
                 dst = slots.view(-1)
                 for i, off in enumerate(range(0, flat.size, n)):
-                    buf, copied = self._staging[i % 2]
-                    copied.synchronize()  # the slice's last copy has drained
+                    staged = self._staging[i % 2]
+                    buf, copied = staged
+                    if copied is not None:
+                        copied.synchronize()  # the slice's last copy drained
                     part = flat[off : off + n]
                     buf.numpy()[: part.size] = part
                     dst[off : off + part.size].copy_(buf[: part.size],
                                                      non_blocking=True)
-                    copied.record(self._copy_stream)
+                    # a new event each time: an event records on one device
+                    staged[1] = torch.cuda.Event()
+                    staged[1].record(stream)
                 done = torch.cuda.Event()
-                done.record(self._copy_stream)
+                done.record(stream)
             done.synchronize()  # both slices are free for the next upload
         return slots, done
 

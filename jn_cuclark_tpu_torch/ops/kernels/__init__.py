@@ -300,15 +300,17 @@ def probe_chunk(slots: torch.Tensor, stash_keys: torch.Tensor,
     """K7: label+1 per query q [Q] int64 against one row chunk slots
     [rows_per, 2C] int32 holding rows start_row.. of a 2^m1-row table; a
     query bucketed outside the chunk gets 0, and the 64-entry stash counts
-    only where use_stash is set."""
+    only where use_stash is set.  The chunk may run past the table's last
+    row, or start past it (a db shard of a mesh beyond a small table): no
+    query falls there."""
     dev = q.device
     _check_rows("slots", slots, m1, lb, dev)
     _check_stash(stash_keys, stash_labels, dev)
     _check("q", q, torch.int64, 1, dev)
     rows_per = slots.shape[0]
-    if not (rows_per >= 1 and 0 <= start_row < 1 << m1):
-        raise ValueError(f"chunk of {rows_per} rows at {start_row} is not in "
-                         f"a table of 2^{m1} rows")
+    if not (rows_per >= 1 and 0 <= start_row < 1 << 62):
+        raise ValueError(f"chunk of {rows_per} rows at {start_row}: want at "
+                         "least one row at a start in [0, 2^62)")
     Q, c = q.shape[0], slots.shape[1] // 2
     if Q >= 1 << 31:
         raise ValueError(f"{Q} queries: the chunk probe indexes them in int32")

@@ -68,10 +68,12 @@ def probe_transient_bytes(window_budget: int, pipeline_depth: int,
     return 41 * window_budget + (pipeline_depth + 3) * per_batch
 
 
-def auto_db_cycles(table_bytes: int, transient: int,
-                   device=None) -> tuple[int, int | None]:
-    """(db_cycles, budget_bytes) so each resident table chunk fits the
-    card: cycles = ceil(table bytes / budget).
+def auto_db_cycles(table_bytes: int, transient: int, device=None, *,
+                   n_shards: int = 1) -> tuple[int, int | None]:
+    """(db_cycles, per-device budget_bytes) so each resident table chunk
+    fits the card: cycles = ceil(per-shard table bytes / budget), a shard
+    holding ceil(table bytes / n_shards) (the table's rows split over the
+    db axis of a mesh).
 
     Returns (1, None) where the device memory is unknowable (CPU).  Raises
     with guidance when the budget is below the reference's 200 MB floor."""
@@ -85,13 +87,15 @@ def auto_db_cycles(table_bytes: int, transient: int,
             f"{max(budget, 0) >> 20} MB (< {HARD_FLOOR >> 20} MB floor): "
             f"device limit {limit >> 20} MB minus reserved "
             f"{RESERVED >> 20} MB minus batch transients {transient >> 20} MB. "
-            "Lower BatchPlan.window_budget or pipeline_depth, or set "
+            "Shard the DB over more devices (--shard-db / -d), lower "
+            "BatchPlan.window_budget or pipeline_depth, or set "
             "CLARK_TPU_DEVICE_MEM_BYTES if the device limit was misdetected."
         )
-    cycles = max(-(-table_bytes // budget), 1)
+    per_shard = -(-table_bytes // max(n_shards, 1))
+    cycles = max(-(-per_shard // budget), 1)
     if cycles > 1 and os.environ.get("CLARK_TPU_PREFETCH_CHUNKS", "1") != "0":
         # the next chunk uploads while this one is probed
         # (engine._cycle_passes), so two chunks are resident at the peak and
         # each must fit half the budget
-        cycles = max(-(-table_bytes // (budget // 2)), 2)
+        cycles = max(-(-per_shard // (budget // 2)), 2)
     return cycles, budget

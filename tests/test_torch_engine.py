@@ -1,7 +1,7 @@
 """The classify slice of the PyTorch port end to end on the CPU (plain
 twins of the kernels): byte-equal CSVs against the reference goldens and
 against the JAX engine, the CLI (single-end, paired-end, extended), and the
-modes that are not ported yet."""
+modes that were rejected in earlier slices and now classify."""
 
 import gzip
 import os
@@ -19,6 +19,7 @@ from jn_cuclark_tpu.io.targets import parse_targets as jparse_targets
 from jn_cuclark_tpu_torch import cli
 from jn_cuclark_tpu_torch.database import DBConfig
 from jn_cuclark_tpu_torch.engine import BatchPlan, Classifier
+from jn_cuclark_tpu_torch.parallel.mesh import make_mesh
 from jn_cuclark_tpu_torch.params import Profile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -224,16 +225,14 @@ def test_cli_paired_and_extended_match_library(random_db, tmp_path, mode,
     (["--jobs", "2"], "A10"),
 ])
 def test_cli_rejects_modes_not_ported(random_db, tmp_path, flags, item):
-    """The mesh options (A9) raise; --db-cycles (A7) and --jobs (formerly
-    A10) are ported and write the resident library run's bytes."""
+    """Options once rejected, each named by its ROADMAP item, now classify
+    and write the resident library run's bytes: --db-cycles (A7), --jobs
+    (formerly A10), and the mesh options (A9): --shard-db alone keeps one
+    device, -d 2 splits the reads over two CPU shards."""
     tmp, prof, _ = random_db
     db = _config(random_db, tmp_path)
     argv = ["classify", "-D", str(db), "-O", str(tmp_path / "reads.fa"),
             "-R", str(tmp_path / "x"), "--device", "cpu", *flags]
-    if item == "A9":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            cli.main(argv)
-        return
     assert cli.main(argv) == 0
     clf = Classifier.load(str(db), str(db / "targets.txt"), prof, 9,
                           device="cpu")
@@ -246,8 +245,14 @@ def test_library_rejects_modes_not_ported(random_db, tmp_path):
     db = tmp_path / "db"
     shutil.copytree(tmp, db)
     args = (str(db), str(db / "targets.txt"), prof, 9)
-    with pytest.raises(NotImplementedError, match="A9"):
-        Classifier.load(*args, device="cpu", mesh=object())
+    # a device mesh (A9), formerly rejected here, now classifies: two CPU
+    # db shards write the resident run's bytes
+    meshed = Classifier.load(*args, mesh=make_mesh(2, device="cpu"),
+                             mesh_mode="db")
+    assert meshed.sharded.ndb == 2
+    assert (b"".join(meshed.classify_bytes(fa)[0])
+            == b"".join(Classifier.load(*args, device="cpu")
+                        .classify_bytes(fa)[0]))
     # out-of-core cycling (A7), formerly rejected here, now classifies: a
     # cycled run writes the resident run's bytes
     cycled = Classifier.load(*args, device="cpu", db_cycles=3)

@@ -8,10 +8,12 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+from jn_cuclark_tpu_torch.ops import kernels, radix_table
 from jn_cuclark_tpu_torch.params import Profile
 from jn_cuclark_tpu_torch.utils import memory
 
@@ -20,7 +22,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_phases_on_cpu(tmp_path, monkeypatch):
     dev = torch.device("cpu")
-    assert chip_smoke.check_kernels(dev) == 12 + 10 + 6 + 6 + 12 + 9 + 29 + 9
+    assert chip_smoke.check_kernels(dev, big_tables=False) == (
+        12 + 10 + 6 + 6 + 12 + 9 + 29 + 9)
     assert chip_smoke.check_goldens(dev, str(tmp_path)) == 6
     assert chip_smoke.check_golden_dbs(dev, str(tmp_path)) == 3
     dense = chip_smoke.check_dense_targets(dev, str(tmp_path), n_reads=40)
@@ -34,6 +37,11 @@ def test_phases_on_cpu(tmp_path, monkeypatch):
     )
     assert m["reads"] == 1500 and m["pairs"] == 300
     assert m["db_keys"] > 45_000 and m["db_distinct_kmers"] >= m["db_keys"]
+    # two shards: the plain probes run every query against every shard
+    mesh = chip_smoke.run_mesh(dev, str(scale), prof, lens, launches, n=2)
+    assert (mesh["mesh db"]["shards"], mesh["mesh db cycled labels"]["cycles"],
+            mesh["mesh dp x db"]["db_shards"]) == (2, 3, 1)
+    assert mesh["mesh db"]["shard_bytes"] * 2 == clf.table.slots.nbytes
     # the auto-policy runs of phase 4b set limits of a few MB here
     monkeypatch.setattr(memory, "HARD_FLOOR", 0)
     ooc, dense_clf = chip_smoke.run_out_of_core(dev, str(scale), prof, clf,
@@ -77,6 +85,18 @@ def test_phases_on_cpu(tmp_path, monkeypatch):
                for t in timing.values())
     assert {n for n, t in timing.items() if t["library_ms"] is not None} == {
         "sort_top2", "counts_top2", "counts_top2 T=65535"}
+
+
+def test_kshift_case_plans_kshift_1():
+    """Phase 2's 1 GiB K2/K8 case: its keys plan to 2^26 rows of C = 2, the
+    size at which a tile sorts by pairs of rows (planned only: the fill is
+    the card's)."""
+    _, keys, labels1, pairs = chip_smoke.kshift_keys()
+    plan = radix_table.plan_table(keys, labels1, c=2, load=1 / 64)
+    assert plan.m1 == chip_smoke.KSHIFT_M1 == 26
+    assert kernels.group_bins(1 << plan.m1) == (14, 4096, 1)
+    rows = np.concatenate([pairs, pairs + 1])
+    assert np.isin(rows, plan.bucket).all()  # each pair's rows hold keys
 
 
 def test_extended_csv_less_counts_is_the_plain_csv():
