@@ -12,7 +12,11 @@ raises and exits non-zero before the result lines:
              libraries (nvcc, sm_90a), all at once, from the checkout's
              sources
   2 kernels  K1-K8 on the card against their plain-PyTorch twins on the
-             same inputs, exact equality (integers; tolerance 0); K5 in its
+             same inputs, exact equality (integers; tolerance 0); K1 at
+             strides 64, 256 and 4,096, N on window edges, reads of exactly
+             k characters, W no multiple of its run; K4 in both forms (W at
+             the warp form's edge and past it), one label, 224 distinct
+             labels, 65,534 and 65,535, a ragged R; K5 in its
              three forms, at both sides of each form's edge; K7 across
              chunk edges, cycles 2-5 (padded last chunks), the stash on and
              off, k = 32 keys, slots whose hi half equals a missing query's,
@@ -63,8 +67,11 @@ raises and exits non-zero before the result lines:
              byte-equal
   5 timing   each kernel and its twin at the shapes of those paths, with
              its bound and a one-call PyTorch yardstick where one exists;
+             a kernel's ms is its device time in torch.profiler's trace
+             (CUDA events around the wrapper calls beside it, as event_ms);
              K7 against each chunk of the table's 4-cycle split; K2, K7 and
-             K8 split by pass (torch.profiler)
+             K8 split by pass; K1's run plan, K4's form, and the SASS
+             instruction counts of K1, K3 and K4 (cuobjdump)
 
 The last two lines are the kernels' JSON record and the run's contract
 line {"ok": true, "device": {...}}.  With no CUDA device it exits 1 and
@@ -81,6 +88,7 @@ import dataclasses
 import gzip
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -138,22 +146,56 @@ def _i64(a: np.ndarray) -> torch.Tensor:
 # --------------------------------------------------------------- phase 2
 # Inputs that reach the kernels' edge cases; tests/test_torch_cuda.py runs
 # the same cases under pytest.
+def _pack(seqs, stride: int):
+    """(words, vwords) int64 tensors of reads `seqs` packed at `stride`."""
+    data = b"".join(b">r%d\n%s\n" % (i, s) for i, s in enumerate(seqs))
+    _, _, _, ss, se, _ = native.scan_reads(data)
+    return tuple(_i64(a) for a in native.pack_batch(data, ss, se, stride))
+
+
 def k1_cases(seed: int = 0):
     """(label, (words, vwords, k, probe_cols)) on the CPU: reads with N
     characters, reads shorter than k, an all-T read (k = 32's all-ones
-    window), the full width and probe_cols trims."""
+    window), the full width and probe_cols trims; then the rolled runs'
+    edges (kernels.window_run): strides 64 and 4,096 (two tiles a row),
+    reads of exactly k characters, N as the first and the last character
+    of a window, W no multiple of the run length, k = 32 on all-T reads."""
     rng = np.random.default_rng(seed)
     seqs = [
         rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=rng.integers(1, 256),
                    p=[0.245, 0.245, 0.245, 0.245, 0.02]).tobytes()
         for _ in range(2000)
     ] + [b"ACG", b"T" * 200]
-    data = b"".join(b">r%d\n%s\n" % (i, s) for i, s in enumerate(seqs))
-    _, _, _, ss, se, _ = native.scan_reads(data)
-    w, v = native.pack_batch(data, ss, se, 256)
+    w, v = _pack(seqs, 256)
     for k in (9, 27, 31, 32):
         for pc in (None, 96, 1):
-            yield f"k={k} probe_cols={pc}", (_i64(w), _i64(v), k, pc)
+            yield f"k={k} probe_cols={pc}", (w, v, k, pc)
+
+    def reads(n, lo, hi, n_frac):
+        return [rng.choice(np.frombuffer(b"ACGTN", np.uint8),
+                           size=rng.integers(lo, hi + 1),
+                           p=[(1 - n_frac) / 4] * 4 + [n_frac]).tobytes()
+                for _ in range(n)]
+
+    w, v = _pack(reads(300, 1, 64, 0.02) + [b"T" * 64, b"A" * 31, b"C" * 32],
+                 64)
+    for k, pc in ((31, None), (32, None), (31, 13)):
+        yield f"S=64 k={k} probe_cols={pc}", (w, v, k, pc)
+    w, v = _pack(reads(24, 2000, 4096, 0.01) + [b"T" * 4096], 4096)
+    for k, pc in ((27, None), (32, 3001)):
+        yield f"S=4096 k={k} probe_cols={pc}", (w, v, k, pc)
+    # N at read positions 0, 40, 41, 100 and the last: windows that start
+    # and end on each; reads of exactly 27, 31 and 32 characters
+    edge = []
+    for n_at in ((0,), (40, 41), (100,), (249,)):
+        s = bytearray(ACGT[rng.integers(0, 4, size=250)].tobytes())
+        for i in n_at:
+            s[i] = ord("N")
+        edge.append(bytes(s))
+    edge += [ACGT[rng.integers(0, 4, size=k)].tobytes() for k in (27, 31, 32)]
+    w, v = _pack(edge + reads(60, 1, 256, 0.03) + [b"T" * 256], 256)
+    for k, pc in ((27, None), (31, None), (32, None), (31, 101)):
+        yield f"N at window edges k={k} probe_cols={pc}", (w, v, k, pc)
 
 
 def k2_cases(seed: int = 0):
@@ -247,8 +289,13 @@ def k3_cases(seed: int = 0):
 def k4_cases(seed: int = 0):
     """(label, lab [R, W] int32) on the CPU for the sorted label grid: ties,
     all-zero rows, W = 1, one row of 100,000 windows, labels up to 65,534
-    (u16 values above int16's range)."""
+    (u16 values above int16's range); then the warp form's edges
+    (kernels.sort_form): W at its edge and one past it (the block form), a
+    row of one label, rows of 224 distinct labels, labels 65,534 and 65,535
+    beside 0, and R no multiple of the 8 reads a block."""
     rng = np.random.default_rng(seed)
+    edge = kernels.SORT_WARP_W
+    distinct = np.stack([rng.permutation(65535)[:224] + 1 for _ in range(64)])
     cases = {
         "ties": np.array([[3, 3, 5, 5, 7, 0], [2, 2, 9, 9, 9, 1],
                           [4, 0, 4, 6, 6, 6]], np.int32),
@@ -257,6 +304,13 @@ def k4_cases(seed: int = 0):
         "100k-window row": rng.integers(0, 18, size=(1, 100_000)),
         "labels up to 65,534": rng.integers(0, 65535, size=(256, 400)),
         "random": rng.integers(0, 17, size=(4096, 224)),
+        f"W={edge}": rng.integers(0, 300, size=(40, edge)),
+        f"W={edge + 1}": rng.integers(0, 300, size=(40, edge + 1)),
+        "one label": np.full((16, 224), 7),
+        "224 distinct": distinct,
+        "65,534 and 65,535 beside 0": rng.choice([0, 65534, 65535],
+                                                 size=(100, 224)),
+        "R=13": rng.integers(0, 17, size=(13, 224)),
     }
     for label, lab in cases.items():
         yield label, torch.from_numpy(lab.astype(np.int32))
@@ -1388,7 +1442,8 @@ def _ms(fn, dev, reps: int) -> float:
 
 def _device_split(fn, dev, reps: int) -> dict:
     """Device milliseconds per call of each kernel that fn launches, from
-    torch.profiler's CUDA trace (empty where the trace shows none)."""
+    torch.profiler's CUDA trace (empty where the trace shows none): each
+    kernel's mean duration times its launches a call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm-up
@@ -1402,9 +1457,37 @@ def _device_split(fn, dev, reps: int) -> dict:
         us = getattr(e, "device_time_total", None)
         if us is None:
             us = e.cuda_time_total
-        if us > 0:
-            out[e.key.split("(")[0]] = us / reps / 1e3
+        if us > 0 and e.count:
+            # a launch's mean times the launches a call makes, which holds
+            # where the trace keeps fewer events than there were launches
+            out[e.key.split("(")[0]] = (us / e.count / 1e3
+                                        * max(round(e.count / reps), 1))
     return out
+
+
+SASS_KERNELS = ("window_canonicals_kernel", "sort_warp_kernel", "top2_kernel")
+
+
+def sass_counts(lib_path: str, names=SASS_KERNELS) -> dict:
+    """Instructions (NOPs left out) in the SASS of each kernel of a built
+    library whose name holds one of `names` (cuobjdump -sass): {mangled
+    name: count}.  A kernel's count is static: each loop body counts once,
+    so a thread's run of E windows counts E times in K1's."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sass = subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", lib_path],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if any(n in m.group(1) for n in names) else None
+            if cur:
+                counts[cur] = 0
+        elif cur and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?!NOP\b)\S", line):
+            counts[cur] += 1
+    return counts
 
 
 def build_partition(tmp: str, n_genomes: int, k: int):
@@ -1570,12 +1653,27 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
         got, want = kern(), plain()
         got = got if isinstance(got, tuple) else (got,)
         err = _same(name, got, want if isinstance(want, tuple) else [want])
-        bound_ms, bound_by = _bound(nbytes + _nbytes(*got), ops)
-        out[name] = dict(max_abs_err=err, ms=_ms(kern, dev, reps),
+        moved = nbytes + _nbytes(*got)
+        bound_ms, bound_by = _bound(moved, ops)
+        event_ms = _ms(kern, dev, reps)
+        # a kernel's time is its device time in the trace: events around
+        # the calls also count the wrappers' host work, 15-60 microseconds
+        # a call, which outlasts a kernel of 0.02-0.04 ms
+        device = (_device_split(kern, dev, reps) if dev.type == "cuda"
+                  else {})
+        ms = sum(device.values()) if device else event_ms
+        out[name] = dict(max_abs_err=err, ms=ms,
+                         ms_from="trace" if device else "events",
+                         event_ms=event_ms,
                          plain_ms=_ms(plain, dev, plain_reps),
                          bound_ms=bound_ms, bound_by=bound_by,
                          library_ms=None if library is None
-                         else _ms(library, dev, reps))
+                         else _ms(library, dev, reps),
+                         achieved_bytes_per_s=moved / ms * 1e3)
+        if name in ("probe_chunk", "probe", "probe_dense"):
+            # the passes of K7 (count, scatter, probe) on chunk 0, of K2 and
+            # of K8 (count, tiles, scatter, grouped probe; K8 per plane)
+            out[name]["pass_ms"] = device
     # the record's K7 error covers every chunk of the split
     out["probe_chunk"]["max_abs_err"] = max(
         out["probe_chunk" + (f" chunk {i}" if i else "")]["max_abs_err"]
@@ -1587,11 +1685,14 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
     if dev.type == "cuda":
         out["aggregate"]["kernel_only_ms"] = _ms(
             lambda: kernels.aggregate(keys, seq, *part[1:]), dev, reps)
-        # the passes of K7 (count, scatter, probe) on chunk 0, of K2 and of
-        # K8 (count, tiles, scatter, grouped probe; K8 per plane), one by one
-        for name in ("probe_chunk", "probe", "probe_dense"):
-            out[name]["pass_ms"] = _device_split(runs[name][0], dev, reps)
+    e, tr, rb, tiles = kernels.window_run(pc)
     return out, dict(rows=len(idx), stride=stride, windows=pc,
+                     k1_run=dict(E=e, runs_a_row=-(-pc // e),
+                                 block=[rb, tr], grid=[-(-len(idx) // rb),
+                                                       tiles]),
+                     sort_form=kernels.sort_form(pc),
+                     sass=sass_counts(kernels.library_path())
+                     if dev.type == "cuda" else None,
                      queries=len(idx) * pc, targets=T, dense_rows=dense_rows,
                      partition_entries=part[0].shape[0],
                      chunk_rows=rows_per,

@@ -49,6 +49,9 @@ SMEM_BYTES = 232_448  # shared memory one H100 block may use
 K5_SMALL_T1 = 4096  # small form: T+1 histogram columns per read, at most
 K5_TILE_W = 4096  # large form: windows per read, at most
 K5_FORMS = ("small", "large", "wide")
+K1_THREADS = 256  # threads of a K1 block, one run of E windows each
+SORT_WARP_W = 1024  # K4's warp form: windows per read, at most
+SORT_FORMS = ("warp", "block")
 
 LAUNCHES = {"window_canonicals": 0, "probe": 0, "top2": 0, "sort_top2": 0,
             "counts_top2": 0, "aggregate": 0, "probe_chunk": 0,
@@ -98,7 +101,8 @@ def _bind(name: str, lib):
     lib.clark_cuda_error_string.argtypes = [i32]
     sigs = {
         "classify": {
-            "launch_window_canonicals": [p, p, p, i64, i32, i32, i32, i32, p],
+            "launch_window_canonicals": [p, p, p, i64, i32, i32, i32, i32,
+                                         i32, i32, i32, i32, p],
             "launch_probe": [p, p, p, p, p, i64, i32, i32, i32, i32, i32,
                              i32, i32, p, p, p, p, p],
             "launch_probe_chunk": [p, p, p, p, p, i64, i32, i32, i32, i64,
@@ -107,7 +111,7 @@ def _bind(name: str, lib):
                                    i32, i32, i32, i32, i32, i32, i32, i32,
                                    p, p, p, p, p],
             "launch_top2": [p, i64, i64, p, p, p, p, p, p],
-            "launch_sort_top2": [p, i64, i64, p, p, p, p, p, p, p],
+            "launch_sort_top2": [p, i64, i64, i32, p, p, p, p, p, p, p],
             "launch_counts_top2": [p, i64, i64, i32, i32, p, p, p, p, p, p,
                                    p],
         },
@@ -130,6 +134,11 @@ def load(name: str = "classify"):
         if name not in _libs:
             _libs[name] = _bind(name, ctypes.CDLL(_build(name)))
         return _libs[name]
+
+
+def library_path(name: str = "classify") -> str:
+    """Path of the built kernel library `name` (built first if need be)."""
+    return _build(name)
 
 
 def load_all():
@@ -181,8 +190,21 @@ def window_canonicals(words: torch.Tensor, vwords: torch.Tensor, k: int,
     q = torch.empty((R, w), dtype=torch.int64, device=dev)
     _launch(lib, lib.launch_window_canonicals, "window_canonicals", dev,
             words.data_ptr(), vwords.data_ptr(), q.data_ptr(), R, nw,
-            S // 64 + 1, w, k)
+            S // 64 + 1, w, k, *window_run(w))
     return q
+
+
+def window_run(w: int) -> tuple[int, int, int, int]:
+    """K1's launch plan for rows of w windows: (E, tr, rb, tiles).  A
+    thread rolls a run of E consecutive windows (8, or 4 below 64 windows,
+    where a run of 8 would leave most of a short row's threads idle); a
+    block of K1_THREADS threads holds tr runs of each of rb whole rows
+    where a row's runs fit it, else tr = K1_THREADS runs of one row, and
+    `tiles` blocks cover a row."""
+    e = 8 if w >= 64 else 4
+    runs = -(-w // e)
+    tr = min(runs, K1_THREADS)
+    return e, tr, K1_THREADS // tr, -(-runs // tr)
 
 
 def probe(slots: torch.Tensor, stash_keys: torch.Tensor,
@@ -383,15 +405,24 @@ def sort_top2(lab: torch.Tensor):
     dev = lab.device
     _check("lab", lab, torch.int32, 2, dev)
     R, W = lab.shape
+    form = SORT_FORMS.index(sort_form(W))
     lib = load()
     srt = torch.empty((R, W), dtype=torch.int16, device=dev)
     outs = torch.empty((5, R), dtype=torch.int32, device=dev)
     total, ibest, best, isbest, sbest = outs
     _launch(lib, lib.launch_sort_top2, "sort_top2", dev,
-            lab.data_ptr(), R, W, srt.data_ptr(), total.data_ptr(),
+            lab.data_ptr(), R, W, form, srt.data_ptr(), total.data_ptr(),
             ibest.data_ptr(), best.data_ptr(), isbest.data_ptr(),
             sbest.data_ptr())
     return srt, total, ibest, best, isbest, sbest
+
+
+def sort_form(w: int) -> str:
+    """K4's form for rows of w windows: "warp" (a warp sorts each read in
+    registers, 8 reads a block) up to SORT_WARP_W windows, the classify
+    batches' widths; "block" (a block per read, a counting sort over
+    chunks of the label range) past it, for reads of over 1,024 windows."""
+    return "warp" if w <= SORT_WARP_W else "block"
 
 
 def counts_form(t1: int, w: int) -> str:

@@ -22,13 +22,16 @@
 // synchronise, allocates nothing, and returns cudaGetLastError() so a
 // refused launch surfaces at once.
 //
-// K1, K3 and K4 are first, simple kernels: one thread per window, one block
-// per read.  K2, K5, K7 and K8 are redesigned for the card (their notes
-// below say what bounds them and what the design does about it).  The
-// DB-build aggregate (K6) lives in aggregate.cu.
+// K3 is a first, simple kernel: one block per read.  K1, K2, K4, K5, K7
+// and K8 are redesigned for the card (their notes below say what bounds
+// them and what the design does about it); K4 keeps K3's block form for
+// rows wider than its warp form takes.  The DB-build aggregate (K6) lives
+// in aggregate.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 typedef unsigned long long u64;
 typedef unsigned int u32;
@@ -39,9 +42,47 @@ typedef unsigned int u32;
 #define STASH_CAP 64
 
 // ---------------------------------------------------------------- K1
-// Bound by bytes: each window reads two code words and two validity words
-// (L1/L2 hits for neighbouring threads of one row) and writes one u64, so
-// the [R, W] output write is the DRAM traffic.  One thread per window.
+// Replaces device_pipeline.py:21 window_canonicals and :68 _revcomp:
+// words [R, nw] (2-bit codes, first char in the lowest bits, one zero guard
+// word per row), vwords [R, nv] (validity bits) -> q [R, W]: the canonical
+// value min(x, revcomp(x)) of the window starting at column p, or EMPTY
+// where the window holds an invalid char or runs off the read.
+//
+// Bound by bytes at the config-2 shape (R = 32,768, S = 256, W = 224,
+// k = 31: the [R, W] u64 write, 58.7 MB, is the DRAM traffic; 0.0186 ms
+// at 3.35 TB/s).  The first kernel ran one thread per window and was bound
+// by integer issue instead: each window paid a 64-bit division i / W, two
+// 64-bit funnel shifts and the five-stage revcomp, 247 SASS instructions a
+// window, all of it 32-bit integer work on sm_90 (0.0546 ms on an H100 SXM
+// at 700 W, 1.1 TB/s).  This design takes those off the per-window path:
+// 531 instructions a thread of E = 8 windows, 66 a window, and 0.0245 ms
+// at that shape, 2.5 TB/s, 76% of the bound (chip_smoke.py phase 5:
+// sass_counts, the profiler's trace):
+//
+//   - 2-D launch, no division by W: blockIdx.x walks groups of rb rows,
+//     blockIdx.y tiles of tr runs along a row (kernels.window_run plans
+//     both from W alone; one 32-bit division per thread splits
+//     threadIdx.x into row and run).
+//   - Rolling windows: a thread takes a run of E consecutive windows.  The
+//     first is funnel-shifted and reverse-complemented as before; each
+//     later one takes one new char c:
+//         x'  = (x >> 2) | (c << (2k-2))
+//         rc' = ((rc << 2) | (3 - c)) & mask
+//     The second follows from revcomp: with y_j the 2-bit group j of
+//     rc = revcomp(x), y_j = 3 - c_{p+k-1-j}, so the next window's
+//     y'_0 = 3 - c_{p+k} (the new char, complemented) and y'_j =
+//     3 - c_{p+k-j} = y_{j-1}: rc shifts up one group and the top group
+//     falls off (mask = 2k ones; all 64 at k = 32, where the shift drops it
+//     by itself).  The run's E-1 new chars come from one funnel shift,
+//     its validity bits (k + E - 1 <= 64) from another; window e is valid
+//     where bits [e, e+k) are all set, the test the twin makes.
+//   - Staged stores: a thread writes its E values to shared memory (one
+//     slot of padding every 8 keeps a half-warp's 8-B stores on distinct
+//     banks), and the block's outputs -- one contiguous span of q, since a
+//     block holds whole rows or one tile of one row -- leave as 16-B
+//     stores (store_stage).
+#define K1_THREADS 256
+#define K1_SLOT(i) ((i) + ((i) >> 3))  // padded stage slot of span index i
 
 // Jellyfish reverse complement of a little-endian 2-bit k-mer
 // (kmersConversion.cc:39-47): swap the 2-bit groups, complement, then shift
@@ -56,36 +97,79 @@ __device__ __forceinline__ u64 revcomp(u64 x, int k) {
   return (~x) >> (64 - 2 * k);
 }
 
-// words [R, nw] (2-bit codes, first char in the lowest bits, one zero guard
-// word per row), vwords [R, nv] (validity bits) -> q [R, W]: the canonical
-// value of the window starting at column p, or EMPTY where the window holds
-// an invalid char or runs off the read.
-__global__ void window_canonicals_kernel(const u64* __restrict__ words,
-                                         const u64* __restrict__ vwords,
-                                         u64* __restrict__ q, long long R,
-                                         int nw, int nv, int W, int k) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= R * (long long)W) return;
-  long long r = i / W;
-  int p = (int)(i - r * W);
-  const u64* wr = words + r * nw;
-  const u64* vr = vwords + r * nv;
+// 64 bits of a row's bit string from bit 64 lo + off on: a funnel shift of
+// words lo and hi (a shift by 64 is undefined, hence the guard).  hi is
+// lo + 1, clamped by the caller where that may pass the row.
+__device__ __forceinline__ u64 funnel(const u64* w, int lo, int hi, int off) {
+  u64 x = w[lo] >> off;
+  if (off) x |= w[hi] << (64 - off);
+  return x;
+}
 
-  // funnel shift of two words; a shift by 64 is undefined, hence the guard
-  int wi = p >> 5, off = (p & 31) * 2;
-  u64 val = wr[wi] >> off;
-  if (off) val |= wr[wi + 1] << (64 - off);
-  if (k < 32) val &= (1ull << (2 * k)) - 1;
+// n staged values (span index i at stage[K1_SLOT(i)]) to global dst by the
+// whole block: one scalar store up to dst's first 16-B boundary, 16-B
+// stores, one scalar tail.
+__device__ __forceinline__ void store_stage(u64* __restrict__ dst,
+                                            const u64* stage, int n) {
+  int head = (int)(((uintptr_t)dst >> 3) & 1);
+  if (head > n) head = n;
+  if (threadIdx.x < head) dst[0] = stage[K1_SLOT(0)];
+  int np = (n - head) >> 1;
+  ulonglong2* d2 = reinterpret_cast<ulonglong2*>(dst + head);
+  for (int i = threadIdx.x; i < np; i += blockDim.x) {
+    int o = head + 2 * i;
+    d2[i] = make_ulonglong2(stage[K1_SLOT(o)], stage[K1_SLOT(o + 1)]);
+  }
+  if (threadIdx.x == 0 && head + 2 * np < n) dst[n - 1] = stage[K1_SLOT(n - 1)];
+}
 
-  int vi = p >> 6, voff = p & 63;
-  u64 vb = vr[vi] >> voff;
-  if (voff) vb |= vr[vi + 1] << (64 - voff);
-  u64 kmask = (1ull << k) - 1;  // k <= 32
-  bool valid = (vb & kmask) == kmask;
-
-  u64 rc = revcomp(val, k);
-  u64 canon = val < rc ? val : rc;  // unsigned min
-  q[i] = valid ? canon : EMPTY64;
+// E windows a thread (a run); tr runs of each of rb rows a block, tile
+// blockIdx.y of each row's runs.  W <= S keeps every char a window reads
+// below S + 32, inside the row's guard word.
+template <int E>
+__global__ void __launch_bounds__(K1_THREADS)
+window_canonicals_kernel(const u64* __restrict__ words,
+                         const u64* __restrict__ vwords, u64* __restrict__ q,
+                         long long R, int nw, int nv, int W, int k, int tr,
+                         int rb) {
+  __shared__ u64 stage[K1_SLOT(K1_THREADS * E)];
+  long long r0 = (long long)blockIdx.x * rb;
+  int nr = (int)min((long long)rb, R - r0);
+  int p0 = blockIdx.y * tr * E;   // the tile's first window
+  int wt = min(tr * E, W - p0);   // the tile's windows in each row
+  int lr = threadIdx.x / tr, jr = threadIdx.x - lr * tr;
+  int p = p0 + jr * E;            // the run's first window
+  if (lr < nr && jr * E < wt) {
+    const u64* wr = words + (r0 + lr) * nw;
+    const u64* vr = vwords + (r0 + lr) * nv;
+    u64 mask = k < 32 ? (1ull << (2 * k)) - 1 : ~0ull;
+    u64 x = funnel(wr, p >> 5, (p >> 5) + 1, (p & 31) * 2) & mask;
+    u64 rc = revcomp(x, k);
+    // the run's new chars p+k .. p+k+E-2, 2(E-1) <= 14 bits
+    int t = p + k;
+    u32 next = (u32)funnel(wr, t >> 5, min((t >> 5) + 1, nw - 1),
+                           (t & 31) * 2);
+    u64 vs = funnel(vr, p >> 6, (p >> 6) + 1, p & 63);
+    u64 kmask = (1ull << k) - 1;  // k <= 32
+    int top = 2 * k - 2;
+    int lim = wt - jr * E;        // windows of this run inside the tile
+    int s0 = lr * wt + jr * E;    // span index of the run's first window
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if (e) {
+        u64 c = (next >> (2 * (e - 1))) & 3;
+        x = (x >> 2) | (c << top);
+        rc = ((rc << 2) | (c ^ 3)) & mask;
+      }
+      if (e < lim) {
+        bool valid = ((vs >> e) & kmask) == kmask;
+        u64 canon = x < rc ? x : rc;  // unsigned min
+        stage[K1_SLOT(s0 + e)] = valid ? canon : EMPTY64;
+      }
+    }
+  }
+  __syncthreads();
+  store_stage(q + r0 * W + p0, stage, nr * wt);
 }
 
 // ---------------------------------------------------------------- K7
@@ -881,12 +965,15 @@ plane2_local_kernel(const u32* __restrict__ slots2, const u64* __restrict__ q,
 // and merges each chunk's top two into a running top two.  Bound by the
 // row reads (once, plus once per chunk) and the shared-memory atomics.
 //
-// K4 (SORTED) also writes the row's labels sorted ascending, zeros first,
-// as u16 -- a counting sort from the same histograms: W - total zeros,
-// then each chunk's labels at offsets from a block scan of the chunk's
-// histogram.  Each output position finds its label by a binary search of
-// the scanned histogram, so the writes are coalesced whatever the run
-// lengths.  It adds one row write (2 B per window) to K3's traffic.
+// K4's block form (SORTED; rows wider than K4_WARP_W, kernels.sort_form)
+// also writes the row's labels sorted ascending, zeros first, as u16 -- a
+// counting sort from the same histograms: W - total zeros, then each
+// chunk's labels at offsets from a block scan of the chunk's histogram.
+// Each output position finds its label by a binary search of the scanned
+// histogram, so the writes are coalesced whatever the run lengths.  It
+// adds one row write (2 B per window) to K3's traffic.  K3 is still this
+// first, simple form at every width; K4's rows up to K4_WARP_W take the
+// warp form below.
 #define K3_THREADS 128
 #define K3_WARPS (K3_THREADS / 32)
 #define K3_HIST 8192
@@ -897,10 +984,12 @@ __device__ __forceinline__ u64 rank_key(int count, int label) {
   return ((u64)(u32)count << 32) | (u64)(0xFFFFFFFFu - (u32)label);
 }
 
-// Top two of two disjoint top-two lists (a1 >= a2, b1 >= b2).
-__device__ __forceinline__ void merge2(u64& a1, u64& a2, u64 b1, u64 b2) {
-  u64 n1 = max(a1, b1);
-  u64 n2 = max(min(a1, b1), max(a2, b2));
+// Top two of two disjoint top-two lists (a1 >= a2, b1 >= b2).  Keys are
+// u64 from rank_key, or u32 from rank_key16 (K4's warp form).
+template <typename K>
+__device__ __forceinline__ void merge2(K& a1, K& a2, K b1, K b2) {
+  K n1 = max(a1, b1);
+  K n2 = max(min(a1, b1), max(a2, b2));
   a1 = n1;
   a2 = n2;
 }
@@ -923,6 +1012,26 @@ __device__ __forceinline__ void block_merge2(u64& a1, u64& a2, u64* s1,
     for (int w = 1; w < K3_WARPS; ++w) merge2(a1, a2, s1[w], s2[w]);
   }
   __syncthreads();
+}
+
+// Top two of each lane's (a1, a2) across the warp, in every lane.
+template <typename K>
+__device__ __forceinline__ void warp_merge2(K& a1, K& a2) {
+  for (int o = 16; o; o >>= 1) {
+    K b1 = __shfl_xor_sync(0xffffffffu, a1, o);
+    K b2 = __shfl_xor_sync(0xffffffffu, a2, o);
+    merge2(a1, a2, b1, b2);
+  }
+}
+
+template <typename K>
+__device__ __forceinline__ void push_top2(K& a1, K& a2, K key) {
+  if (key > a1) {
+    a2 = a1;
+    a1 = key;
+  } else if (key > a2) {
+    a2 = key;
+  }
 }
 
 // Writes the top two (keys from rank_key) as the five result scalars.
@@ -1059,6 +1168,276 @@ top2_kernel(const int* __restrict__ lab, long long W, int* __restrict__ total,
                sbest);
 }
 
+// ------------------------------------------------------- K4, warp form
+// Replaces device_pipeline.py:155-158 (lax.sort of each read's labels, then
+// score.py:57 top2_from_sorted) for rows of W <= K4_WARP_W windows, the
+// classify batches' widths.  The bytes bound at the config-2 shape
+// (R = 32,768, W = 224: the 29 MB label read and the 14.7 MB u16 write) is
+// 0.0133 ms.  The block form above was bound by latency instead: a
+// 128-thread block held under two labels a thread and ran five to seven
+// __syncthreads phases per 8,192-label chunk of the row's range (0.107 ms
+// on an H100 SXM at 700 W).  Here a warp holds one
+// read and K4_WARPS reads share a block, with no block-wide phase but the
+// final store.  What is left bounds it by instruction issue, mostly the
+// sorting network's compare-exchanges and shuffles: 901 SASS instructions
+// a read at W = 224 (R = 4), 0.039 ms, some 7.5e11 warp instructions a
+// second, near three quarters of the card's four a clock per SM
+// (chip_smoke.py phase 5).  The design keeps that count low:
+//
+//   - Keys: labels below 65,536 ride two to a 32-bit register (P = 2), so
+//     one min.u16x2 / max.u16x2 or one shuffle serves two keys.  Register
+//     s of lane l holds key l * R + s in its low half and M + l * R + s in
+//     its high half (M = 32 R, N = 2M >= W).  Pads are 0xFFFF, no smaller
+//     than any label, so the first W sorted places hold the row's own
+//     multiset.  P = 1 (one u32 key a register, pads 2^32 - 1) is the form
+//     for wider labels, such as K3's.
+//   - Sort: a bitonic network over the register index space (lane * R +
+//     s): strides below R compare registers of one lane, the others
+//     exchange one register per lane with __shfl_xor_sync.  The halves see
+//     the same compares up to level M, where the high half must run
+//     descending: its keys are complemented (x ^ 0xFFFF) for that level.
+//     The last level compares the halves inside each register, then runs
+//     the strides below M ascending.  Nothing depends on the labels' range.
+//   - Runs: a lane's registers hold two runs of consecutive sorted places
+//     (one a half), so a run starts where a key differs from the one
+//     before it (the previous lane's last key, or the low half's last for
+//     lane 0's high half) and ends at the next start: the lane's own, or
+//     the first start of a later segment (suffix minima over the warp).
+//     Each positive run pushes its rank (count desc, label asc: the
+//     reference's tie-break; a u32 for 16-bit labels) into the lane's top
+//     two, and warp_merge2 merges them.
+//   - Store (SORTED): the block's rows are one span of `sorted`, staged in
+//     shared memory and stored as 16-B stores, head and tail masked
+//     (store_span16).  K3 can take this form with SORTED = false.
+#define K4_WARPS 8
+#define K4_WARP_W 1024  // kernels.SORT_WARP_W
+
+// n u16 from shared `src` to global `dst` by the whole block: scalar
+// stores up to dst's first 16-B boundary, 16-B stores, a scalar tail.
+__device__ __forceinline__ void store_span16(unsigned short* __restrict__ dst,
+                                             const unsigned short* src, int n) {
+  int head = (int)(((16 - ((uintptr_t)dst & 15)) & 15) >> 1);
+  if (head > n) head = n;
+  if ((int)threadIdx.x < head) dst[threadIdx.x] = src[threadIdx.x];
+  int nv = (n - head) >> 3;
+  uint4* d4 = reinterpret_cast<uint4*>(dst + head);
+  for (int i = threadIdx.x; i < nv; i += blockDim.x) {
+    const unsigned short* s = src + head + 8 * i;
+    d4[i] = make_uint4(s[0] | (u32)s[1] << 16, s[2] | (u32)s[3] << 16,
+                       s[4] | (u32)s[5] << 16, s[6] | (u32)s[7] << 16);
+  }
+  for (int i = head + 8 * nv + threadIdx.x; i < n; i += blockDim.x)
+    dst[i] = src[i];
+}
+
+// rank_key's order for labels below 2^16 and counts below 2^16, as u32;
+// widen_key16 turns it into rank_key's u64 (0 stays 0).
+__device__ __forceinline__ u32 rank_key16(int count, u32 label) {
+  return (u32)count << 16 | (0xFFFFu - label);
+}
+
+__device__ __forceinline__ u64 widen_key16(u32 k) {
+  return k ? rank_key((int)(k >> 16), (int)(0xFFFFu - (k & 0xFFFFu))) : 0;
+}
+
+// min / max of P keys a register: two u16 halves (sm_90's min.u16x2) or one u32
+template <int P>
+__device__ __forceinline__ u32 kmin(u32 a, u32 b) {
+  if (P == 1) return min(a, b);
+  u32 d;
+  asm("min.u16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+template <int P>
+__device__ __forceinline__ u32 kmax(u32 a, u32 b) {
+  if (P == 1) return max(a, b);
+  u32 d;
+  asm("max.u16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// One bitonic stage over the register index space i = lane * R + s:
+// partner i ^ j, runs of k ascending where i & k == 0.  j and k are
+// constants once the caller's loops unroll.
+template <int R, int P>
+__device__ __forceinline__ void bitonic_stage(u32 (&v)[R], int base, int j,
+                                              int k) {
+  if (j >= R) {
+    // partner lane ^ j / R, the same register; i & j and i & k hang on the
+    // lane alone
+    bool keep_min = ((base & j) == 0) == ((base & k) == 0);
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      u32 o = __shfl_xor_sync(0xffffffffu, v[s], j / R);
+      v[s] = keep_min ? kmin<P>(v[s], o) : kmax<P>(v[s], o);
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      if ((s & j) == 0) {
+        bool up = ((base + s) & k) == 0;
+        u32 lo = kmin<P>(v[s], v[s | j]), hi = kmax<P>(v[s], v[s | j]);
+        v[s] = up ? lo : hi;
+        v[s | j] = up ? hi : lo;
+      }
+    }
+  }
+}
+
+// Sorts the warp's N = 32 R P keys ascending (layout above).  Every loop
+// unrolls, so v stays in registers.
+template <int R, int P>
+__device__ __forceinline__ void bitonic_warp(u32 (&v)[R], int lane) {
+  constexpr int LOGM = 5 + (R >= 2) + (R >= 4) + (R >= 8) + (R >= 16) +
+                       (R >= 32);
+  constexpr int M = 32 * R;
+  const int base = lane * R;
+#pragma unroll
+  for (int lk = 1; lk <= LOGM; ++lk) {
+    const int k = 1 << lk;
+    if (P == 2 && k == M) {
+#pragma unroll
+      for (int s = 0; s < R; ++s) v[s] ^= 0xFFFF0000u;  // high half descends
+    }
+#pragma unroll
+    for (int lj = lk - 1; lj >= 0; --lj) bitonic_stage<R, P>(v, base, 1 << lj, k);
+    if (P == 2 && k == M) {
+#pragma unroll
+      for (int s = 0; s < R; ++s) v[s] ^= 0xFFFF0000u;
+    }
+  }
+  if (P == 2) {  // level 2M: the halves in each register, then strides < M
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      u32 sw = __byte_perm(v[s], 0, 0x1032);
+      v[s] = __byte_perm(kmin<2>(v[s], sw), kmax<2>(v[s], sw), 0x7610);
+    }
+#pragma unroll
+    for (int lj = LOGM - 1; lj >= 0; --lj)
+      bitonic_stage<R, P>(v, base, 1 << lj, 2 * M);
+  }
+}
+
+template <int R, int P, bool SORTED>
+__global__ void __launch_bounds__(K4_WARPS * 32)
+sort_warp_kernel(const int* __restrict__ lab, long long R_rows, int W,
+                 int* __restrict__ total, int* __restrict__ ibest,
+                 int* __restrict__ best, int* __restrict__ isbest,
+                 int* __restrict__ sbest, unsigned short* __restrict__ sorted) {
+  constexpr int M = 32 * R;
+  __shared__ unsigned short stage[SORTED ? K4_WARPS * M * P : 1];
+  int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  long long r0 = (long long)blockIdx.x * K4_WARPS;
+  int nr = (int)min((long long)K4_WARPS, R_rows - r0);
+  // a warp past the last row repeats it and stores nothing: no branch
+  // around the shuffles, which would make the compiler wrap each one in a
+  // collective of its own
+  bool live = warp < nr;
+  {
+    // lane l loads labels l, l + 32, ... (any placement: the sort orders
+    // them) at fixed offsets from one pointer
+    const int* row = lab + (r0 + min(warp, nr - 1)) * W + lane;
+    u32 v[R];
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      int j = s * 32 + lane;
+      if (P == 2)
+        v[s] = (j < W ? (u32)__ldg(row + 32 * s) & 0xFFFFu : 0xFFFFu) |
+               (M + j < W ? (u32)__ldg(row + M + 32 * s) << 16 : 0xFFFF0000u);
+      else
+        v[s] = j < W ? (u32)__ldg(row + 32 * s) : 0xFFFFFFFFu;
+    }
+    bitonic_warp<R, P>(v, lane);
+    const int base = lane * R;
+    auto key = [&](int h, int s) -> u32 {
+      return P == 1 ? v[s] : h ? v[s] >> 16 : v[s] & 0xFFFFu;
+    };
+    // the key before each segment's first place: the previous lane's last
+    // of the same half; lane 0's high half follows lane 31's low half
+    u32 prev[P];
+#pragma unroll
+    for (int h = 0; h < P; ++h)
+      prev[h] = __shfl_up_sync(0xffffffffu, key(h, R - 1), 1);
+    if (P == 2) {
+      u32 t = __shfl_sync(0xffffffffu, key(0, R - 1), 31);
+      if (lane == 0) prev[P - 1] = t;
+    }
+    bool start[P][R];
+    int first[P];  // each segment's first run start (W: none)
+#pragma unroll
+    for (int h = 0; h < P; ++h) {
+      first[h] = W;
+#pragma unroll
+      for (int s = R - 1; s >= 0; --s) {
+        int i = h * M + base + s;
+        start[h][s] = i < W && (i == 0 || key(h, s) != (s ? key(h, s - 1)
+                                                          : prev[h]));
+        if (start[h][s]) first[h] = i;
+      }
+    }
+    // the next start after each segment: a later lane's in the same half,
+    // else (low half) any start of the high half
+    int next[P];
+#pragma unroll
+    for (int h = 0; h < P; ++h) {
+      int x = first[h];
+      for (int o = 1; o < 32; o <<= 1)
+        x = min(x, __shfl_down_sync(0xffffffffu, x, o));
+      next[h] = __shfl_down_sync(0xffffffffu, x, 1);
+      if (lane == 31) next[h] = W;
+      first[h] = x;  // now the suffix minimum
+    }
+    if (P == 2)
+      next[0] = min(next[0], __shfl_sync(0xffffffffu, first[P - 1], 0));
+    // ranks as u32 (rank_key16) where labels fit 16 bits: W <= 1,024
+    // keeps counts below 2^16
+    typedef typename std::conditional<P == 2, u32, u64>::type Key;
+    int tot = 0;
+    Key a1 = 0, a2 = 0;
+#pragma unroll
+    for (int h = 0; h < P; ++h) {
+      int end = next[h];
+#pragma unroll
+      for (int s = R - 1; s >= 0; --s) {
+        if (start[h][s]) {
+          int i = h * M + base + s;
+          if (key(h, s) > 0) {
+            tot += end - i;
+            if constexpr (P == 2)
+              push_top2(a1, a2, rank_key16(end - i, key(h, s)));
+            else
+              push_top2(a1, a2, rank_key(end - i, (int)key(h, s)));
+          }
+          end = i;
+        }
+      }
+    }
+    for (int o = 16; o; o >>= 1) tot += __shfl_xor_sync(0xffffffffu, tot, o);
+    warp_merge2(a1, a2);
+    if (live && lane == 0) {
+      if constexpr (P == 2)
+        store_top2(r0 + warp, tot, widen_key16(a1), widen_key16(a2), total,
+                   ibest, best, isbest, sbest);
+      else
+        store_top2(r0 + warp, tot, a1, a2, total, ibest, best, isbest, sbest);
+    }
+    if (SORTED && live) {
+#pragma unroll
+      for (int h = 0; h < P; ++h)
+#pragma unroll
+        for (int s = 0; s < R; ++s) {
+          int i = h * M + base + s;
+          if (i < W) stage[warp * W + i] = (unsigned short)key(h, s);
+        }
+    }
+  }
+  if (SORTED) {
+    __syncthreads();
+    store_span16(sorted + r0 * W, stage, nr * W);
+  }
+}
+
 // ---------------------------------------------------------------- K5
 // Dense per-read counts [R, T+1] (column 0 collects misses) and the top
 // two over columns 1..T with read_results' order (count desc, lowest
@@ -1095,24 +1474,6 @@ top2_kernel(const int* __restrict__ lab, long long W, int* __restrict__ total,
 #define K5_SMALL_T1 4096  // K5_WARPS histograms of 16 KiB: 128 KiB
 #define K5_TILE_W 4096    // table slots up to 8,192: 64 KiB
 enum { K5_SMALL = 0, K5_LARGE = 1, K5_WIDE = 2 };
-
-// Top two of each lane's (a1, a2) across the warp, in every lane.
-__device__ __forceinline__ void warp_merge2(u64& a1, u64& a2) {
-  for (int o = 16; o; o >>= 1) {
-    u64 b1 = __shfl_xor_sync(0xffffffffu, a1, o);
-    u64 b2 = __shfl_xor_sync(0xffffffffu, a2, o);
-    merge2(a1, a2, b1, b2);
-  }
-}
-
-__device__ __forceinline__ void push_top2(u64& a1, u64& a2, u64 key) {
-  if (key > a1) {
-    a2 = a1;
-    a1 = key;
-  } else if (key > a2) {
-    a2 = key;
-  }
-}
 
 // n ints from shared `src` to global `dst` by the whole block: scalar
 // stores up to dst's first 16-B boundary, 16-B stores, a scalar tail.
@@ -1293,13 +1654,6 @@ counts_top2_kernel(const int* __restrict__ lab, long long W, int T1,
 }
 
 // ---------------------------------------------------------------- launchers
-static int grid_for(long long n, int threads, unsigned* grid) {
-  long long blocks = (n + threads - 1) / threads;
-  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
-  *grid = (unsigned)blocks;
-  return 0;
-}
-
 static long long lmin(long long a, long long b) { return a < b ? a : b; }
 
 // A grid that fills the current device: its SMs times the blocks of
@@ -1446,15 +1800,30 @@ const char* clark_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// K1's plan (kernels.window_run): E windows a run, tr runs of each of rb
+// rows a block, `tiles` blocks along a row; refused where it does not
+// cover the [R, W] grid in one launch.
 int launch_window_canonicals(const void* words, const void* vwords, void* q,
-                             long long R, int nw, int nv, int W, int k,
-                             void* stream) {
-  long long n = R * (long long)W;
-  if (n == 0) return 0;
-  unsigned grid;
-  if (int rc = grid_for(n, 256, &grid)) return rc;
-  window_canonicals_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const u64*)words, (const u64*)vwords, (u64*)q, R, nw, nv, W, k);
+                             long long R, int nw, int nv, int W, int k, int E,
+                             int tr, int rb, int tiles, void* stream) {
+  if (R == 0 || W == 0) return 0;
+  long long runs = (W + E - 1) / E;
+  long long groups = (R + rb - 1) / rb;
+  if ((E != 4 && E != 8) || tr < 1 || rb < 1 || (long long)tr * rb > K1_THREADS ||
+      (rb > 1 && tr < runs) || (long long)tiles * tr < runs ||
+      (long long)(tiles - 1) * tr >= runs || tiles > 65535 ||
+      groups > 0x7FFFFFFFLL || k < 1 || k > 32 || W > (nw - 1) * 32)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)groups, (unsigned)tiles);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (E == 8)
+    window_canonicals_kernel<8><<<grid, K1_THREADS, 0, st>>>(
+        (const u64*)words, (const u64*)vwords, (u64*)q, R, nw, nv, W, k, tr,
+        rb);
+  else
+    window_canonicals_kernel<4><<<grid, K1_THREADS, 0, st>>>(
+        (const u64*)words, (const u64*)vwords, (u64*)q, R, nw, nv, W, k, tr,
+        rb);
   return (int)cudaGetLastError();
 }
 
@@ -1559,14 +1928,37 @@ int launch_top2(const void* lab, long long R, long long W, void* total,
   return (int)cudaGetLastError();
 }
 
-int launch_sort_top2(const void* lab, long long R, long long W, void* sorted,
-                     void* total, void* ibest, void* best, void* isbest,
-                     void* sbest, void* stream) {
+// form: kernels.sort_form(W), 0 = warp (W <= K4_WARP_W), 1 = block.
+int launch_sort_top2(const void* lab, long long R, long long W, int form,
+                     void* sorted, void* total, void* ibest, void* best,
+                     void* isbest, void* sbest, void* stream) {
   if (R == 0) return 0;
   if (R > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
-  top2_kernel<true><<<(unsigned)R, K3_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)lab, W, (int*)total, (int*)ibest, (int*)best, (int*)isbest,
-      (int*)sbest, (unsigned short*)sorted);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int* l = (const int*)lab;
+  int *t = (int*)total, *ib = (int*)ibest, *b = (int*)best,
+      *isb = (int*)isbest, *sb = (int*)sbest;
+  unsigned short* s = (unsigned short*)sorted;
+  if (form == 0) {
+    if (W < 0 || W > K4_WARP_W) return (int)cudaErrorInvalidValue;
+    unsigned grid = (unsigned)((R + K4_WARPS - 1) / K4_WARPS);
+    int w = (int)W, th = K4_WARPS * 32;  // u16 pairs: N = 64 R keys a read
+    if (w <= 64)
+      sort_warp_kernel<1, 2, true><<<grid, th, 0, st>>>(l, R, w, t, ib, b, isb, sb, s);
+    else if (w <= 128)
+      sort_warp_kernel<2, 2, true><<<grid, th, 0, st>>>(l, R, w, t, ib, b, isb, sb, s);
+    else if (w <= 256)
+      sort_warp_kernel<4, 2, true><<<grid, th, 0, st>>>(l, R, w, t, ib, b, isb, sb, s);
+    else if (w <= 512)
+      sort_warp_kernel<8, 2, true><<<grid, th, 0, st>>>(l, R, w, t, ib, b, isb, sb, s);
+    else
+      sort_warp_kernel<16, 2, true><<<grid, th, 0, st>>>(l, R, w, t, ib, b, isb, sb, s);
+  } else if (form == 1) {
+    top2_kernel<true><<<(unsigned)R, K3_THREADS, 0, st>>>(l, W, t, ib, b, isb,
+                                                          sb, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

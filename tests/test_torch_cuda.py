@@ -32,9 +32,9 @@ def dev():
 
 def test_kernels_equal_their_twins(dev):
     kernels.reset_launches()
-    assert chip_smoke.check_kernels(dev) == 12 + 10 + 6 + 6 + 12 + 9 + 29 + 9
-    assert kernels.LAUNCHES == {"window_canonicals": 15, "probe": 10,
-                                "top2": 6, "sort_top2": 6, "counts_top2": 12,
+    assert chip_smoke.check_kernels(dev) == 21 + 10 + 6 + 12 + 12 + 9 + 29 + 9
+    assert kernels.LAUNCHES == {"window_canonicals": 24, "probe": 10,
+                                "top2": 6, "sort_top2": 12, "counts_top2": 12,
                                 "aggregate": 9, "probe_chunk": 29,
                                 "probe_dense": 18}
 

@@ -1,7 +1,8 @@
 """Device step of the PyTorch port against the JAX package, on the CPU:
-the plain-PyTorch twins of kernels K1 (window_canonicals), K3 (top2) and
-the whole classify_batch in its three scoring forms, held to exact integer
-equality."""
+the plain-PyTorch twins of kernels K1 (window_canonicals, also at the edges
+of the kernel's rolled runs, and the rolling recurrence itself), K3 (top2)
+and the whole classify_batch in its three scoring forms, held to exact
+integer equality."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -69,6 +70,66 @@ def test_valid_canonical_is_never_empty_at_k32():
     valid = np.asarray(valid)
     assert np.array_equal(q.numpy() != bits.EMPTY, valid)
     assert (q.numpy()[0, : 128 - k + 1] == 0).all()  # TTT...T -> AAA...A = 0
+
+
+def _edge_reads(rng, stride, k):
+    """Reads up to `stride` long with N as the first and as the last
+    character of some window, reads of exactly k characters and an all-T
+    read (the all-ones window at k = 32)."""
+    seqs = []
+    for n_at in ((0,), (k - 1, k), (stride // 2,), (stride - 1,)):
+        s = bytearray(rng.choice(np.frombuffer(b"ACGT", np.uint8), size=stride))
+        for i in n_at:
+            s[i] = ord("N")
+        seqs.append(bytes(s))
+    seqs += [b"G" * k, b"T" * stride, b"A" * (k - 1)]
+    for _ in range(12):
+        s = rng.choice(np.frombuffer(b"ACGT", np.uint8),
+                       size=rng.integers(1, stride + 1))
+        s[rng.random(len(s)) < 0.02] = ord("N")
+        seqs.append(s.tobytes())
+    return b"".join(b">r%d\n%s\n" % (i, s) for i, s in enumerate(seqs))
+
+
+@pytest.mark.parametrize("stride", [64, 4096])
+@pytest.mark.parametrize("k", [27, 31, 32])
+def test_window_canonicals_plain_equals_jax_at_edges(stride, k):
+    """K1's rolled runs meet their edges at these shapes: rows of one and
+    of many run tiles, N on window edges, rows of exactly k characters, and
+    W no multiple of the run length (a probe_cols trim of 13 or 3,001)."""
+    rng = np.random.default_rng(stride + k)
+    (words, vwords), _ = _packed(_edge_reads(rng, stride, k), stride)
+    for pc in (None, 13 if stride == 64 else 3001):
+        want = _jax_q(words, vwords, k, pc)
+        got = device_pipeline.window_canonicals(_t(words), _t(vwords), k, pc)
+        assert np.array_equal(got.numpy().view(np.uint64), want), pc
+
+
+@pytest.mark.parametrize("k", [1, 31, 32])
+def test_rolled_revcomp_equals_revcomp(k):
+    """K1's rolling recurrence on int64 carriers: from one window's x and
+    rc = revcomp(x), each next character c gives x' = (x >> 2) |
+    (c << (2k-2)) and rc' = ((rc << 2) | (3 - c)) & mask, which equal the
+    next window's value and _revcomp of it (at k = 32 the mask is all ones
+    and the sign bit is in use)."""
+    rng = np.random.default_rng(k)
+    n, steps = 64, 40
+    chars = torch.from_numpy(rng.integers(0, 4, size=(n, k + steps)))
+    chars[0] = 3  # all T: x all ones at k = 32
+    shifts = 2 * torch.arange(k, dtype=torch.int64)
+
+    def value(p):
+        return (chars[:, p : p + k] << shifts).sum(dim=1)
+
+    mask = -1 if k == 32 else (1 << (2 * k)) - 1
+    x = value(0)
+    rc = device_pipeline._revcomp(x, k)
+    for p in range(1, steps + 1):
+        c = chars[:, p + k - 1]
+        x = bits.lsr(x, 2) | (c << (2 * k - 2))
+        rc = ((rc << 2) | (3 - c)) & mask
+        assert torch.equal(x, value(p))
+        assert torch.equal(rc, device_pipeline._revcomp(x, k))
 
 
 TOP2_CASES = {

@@ -2,7 +2,8 @@
 score_from_labels in its three forms (K3 top-2, K4 sorted u16 grid + top-2,
 K5 dense counts + top-2, here their plain twins), and the dense-count twins
 counts_from_hits_plain / read_results_plain, all held to exact equality,
-on shapes at both sides of K5's form edges; and K5's form rule."""
+on shapes at both sides of K5's and K4's form edges; and the forms' and
+K1's launch plan's rules."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -92,6 +93,63 @@ def test_counts_from_hits_and_read_results_equal_jax(case):
 def test_counts_form_by_shape(t1, w, form):
     """K5's form follows the shape alone, at both sides of each edge."""
     assert kernels.counts_form(t1, w) == form
+
+
+def _sorted_case(name):
+    """lab [R, W] int32 (labels in [0, 65,536)) at K4's warp-form edges."""
+    rng = np.random.default_rng(SORTED_CASES.index(name))
+    edge = kernels.SORT_WARP_W
+    w = {"W=1": 1, "edge-1": edge - 1, "edge": edge, "edge+1": edge + 1}
+    if name in w:
+        lab = rng.integers(0, 300, size=(5, w[name]))
+        lab[1] = 0
+        return lab.astype(np.int32)
+    if name == "all equal":
+        return np.full((3, 224), 11, np.int32)
+    # all distinct, 65,535 and 65,534 among them
+    lab = np.stack([rng.permutation(65536)[:224] for _ in range(4)])
+    lab[0, :2] = (65535, 65534)
+    return lab.astype(np.int32)
+
+
+SORTED_CASES = ["W=1", "edge-1", "edge", "edge+1", "all equal",
+                "all distinct"]
+
+
+@pytest.mark.parametrize("case", SORTED_CASES)
+def test_sort_top2_plain_equals_jax_at_form_edges(case):
+    """K4's twin against the JAX package's "sorted" scoring at the shapes
+    where the kernel changes form or its runs meet their edges."""
+    lab = _sorted_case(case)
+    want = [np.asarray(a) for a in jdp.score_from_labels(
+        jnp.asarray(lab), n_targets=65535, extended="sorted")]
+    srt, total, ib, b, isb, sb = score.sort_top2_plain(torch.from_numpy(lab))
+    assert np.array_equal(srt.numpy().view(np.uint16), want[4])
+    for g, w in zip((total, ib, b, sb), want[:4]):
+        assert np.array_equal(g.numpy(), w)
+    assert isb.dtype == torch.int32 and (isb.numpy() >= 0).all()
+
+
+@pytest.mark.parametrize("w, form", [
+    (0, "warp"), (1, "warp"), (224, "warp"), (1024, "warp"), (1025, "block"),
+    (100_000, "block"),
+])
+def test_sort_form_by_shape(w, form):
+    """K4's form follows the row width alone, at both sides of its edge."""
+    assert kernels.sort_form(w) == form
+
+
+@pytest.mark.parametrize("w, plan", [
+    (1, (4, 1, 256, 1)), (63, (4, 16, 16, 1)), (64, (8, 8, 32, 1)),
+    (224, (8, 28, 9, 1)), (2048, (8, 256, 1, 1)), (2049, (8, 256, 1, 2)),
+    (4066, (8, 256, 1, 2)),
+])
+def test_window_run_by_shape(w, plan):
+    """K1's plan (E, runs a block row, rows a block, blocks a row) follows
+    the row width alone; a block's runs never exceed its threads."""
+    assert kernels.window_run(w) == plan
+    e, tr, rb, tiles = plan
+    assert tr * rb <= kernels.K1_THREADS and (tiles - 1) * tr * e < w <= tiles * tr * e
 
 
 def test_sorted_grid_carries_labels_above_int16():

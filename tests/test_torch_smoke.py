@@ -23,7 +23,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_phases_on_cpu(tmp_path, monkeypatch):
     dev = torch.device("cpu")
     assert chip_smoke.check_kernels(dev, big_tables=False) == (
-        12 + 10 + 6 + 6 + 12 + 9 + 29 + 9)
+        21 + 10 + 6 + 12 + 12 + 9 + 29 + 9)
     assert chip_smoke.check_goldens(dev, str(tmp_path)) == 6
     assert chip_smoke.check_golden_dbs(dev, str(tmp_path)) == 3
     dense = chip_smoke.check_dense_targets(dev, str(tmp_path), n_reads=40)
@@ -73,6 +73,8 @@ def test_phases_on_cpu(tmp_path, monkeypatch):
                                             str(scale), 3, reps=1,
                                             dense_rows=8)
     assert shape["stride"] == 256 and shape["windows"] == 224
+    assert shape["k1_run"]["E"] == 8 and shape["k1_run"]["block"] == [9, 28]
+    assert shape["sort_form"] == "warp" and shape["sass"] is None
     assert shape["partition_entries"] == 1 << 20
     assert set(timing) == set(chip_smoke.KERNELS) | {
         "counts_top2 T=65535", "probe_chunk chunk 1", "probe_chunk chunk 2",
