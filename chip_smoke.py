@@ -27,7 +27,11 @@ raises and exits non-zero before the result lines:
              Q = 1, Q no multiple of the tile, a bin past one tile, C = 2,
              4, 6, 16 and 128, and K8's plane 2 on both sides of its form
              edge; K2 and K8's plane 1 at 2^26 rows (C = 2, 1 GiB), where
-             a tile sorts its queries by pairs of rows (kshift = 1)
+             a tile sorts its queries by pairs of rows (kshift = 1); K6
+             (its bucketed form against the stable-sort twin) at k = 9-32,
+             a padded partition, a bucket over its capacity split level by
+             level, a key of 100,000 occurrences mid-range, all keys
+             equal and n = 1, each case raising its branch of the plan
   3 goldens  classify the reference's golden reads on the card (single-end,
              --extended, paired): the six CSVs must be byte-equal to
              tests/golden; rebuild three golden DBs with device="cuda"
@@ -69,8 +73,10 @@ raises and exits non-zero before the result lines:
              its bound and a one-call PyTorch yardstick where one exists;
              a kernel's ms is its device time in torch.profiler's trace
              (CUDA events around the wrapper calls beside it, as event_ms);
-             K7 against each chunk of the table's 4-cycle split; K2, K7 and
-             K8 split by pass; K1's run plan, K4's form, and the SASS
+             K7 against each chunk of the table's 4-cycle split; K2, K7,
+             K8 and K6 split by pass; K6 on a build partition as it is
+             and padded to 2^25, with torch.sort of its keys as the
+             library call; K1's run plan, K4's form, and the SASS
              instruction counts of K1, K3 and K4 (cuobjdump)
 
 The last two lines are the kernels' JSON record and the run's contract
@@ -360,19 +366,39 @@ def occurrences(rng, k: int, n: int):
 
 
 def k6_cases(seed: int = 0):
-    """(label, (canon, label, pg, lelement)) as CPU tensors for the build
-    aggregate: k = 9, 27, 31, 32, lelement on and off, and a partition
-    padded with the 2^64-1 sentinel at k = 32."""
+    """(label, (canon, label, pg, lelement), branch) as numpy arrays for
+    the build aggregate: k = 9, 27, 31, 32, lelement on and off, a
+    partition padded with the 2^64-1 sentinel at k = 32, a bucket of
+    40,000 distinct keys over K6's capacity (split level by level), a key
+    of 100,000 occurrences in the middle of the range and 300,000
+    occurrences of one key (one group over the capacity: the single-key
+    reduction), and n = 1.  `branch` names the level plan's count
+    (bucket_plan.run_levels' stats) that the case must raise, or None."""
     rng = np.random.default_rng(seed)
     for k in (9, 27, 31, 32):
         for lelement in (True, False):
             c, l, pg = occurrences(rng, k, 200_000)
-            yield f"k={k} lelement={lelement}", (c, l, pg, lelement)
+            yield f"k={k} lelement={lelement}", (c, l, pg, lelement), None
     c, l, pg = occurrences(rng, 32, 150_000)
     pad = (1 << 18) - len(c)
     yield "padded partition k=32", (
         np.concatenate([c, np.full(pad, U64_MAX, np.uint64)]),
-        np.concatenate([l, np.zeros(pad, np.int32)]), pg, True)
+        np.concatenate([l, np.zeros(pad, np.int32)]), pg, True), "single"
+    c, l, pg = occurrences(rng, 31, 200_000)
+    mid = np.uint64(1 << 61)
+    skew = mid + np.arange(40_000, dtype=np.uint64) * np.uint64(4)
+    yield "skewed bucket over capacity", (
+        np.concatenate([c, skew]),
+        np.concatenate([l, rng.integers(0, 5, size=len(skew)).astype(
+            np.int32)]), pg, True), "split"
+    yield "large single key mid-range", (
+        np.concatenate([c, np.full(100_000, mid, np.uint64)]),
+        np.concatenate([l, (np.arange(100_000) % 5).astype(np.int32)]), pg,
+        False), "single"
+    yield "all keys equal", (
+        np.full(300_000, mid, np.uint64),
+        (np.arange(300_000) % 5).astype(np.int32), pg, True), "single"
+    yield "n=1", (c[:1], l[:1], pg, True), "small"
 
 
 def keys_in_rows(rng, rows, m1: int) -> np.ndarray:
@@ -669,10 +695,14 @@ def check_kernels(dev, big_tables: bool = True) -> int:
         _same(f"K5 {label}", score.counts_top2(lab, T),
               (counts,) + score.read_results_plain(counts))
         n += 1
-    for label, case in k6_cases():
+    for label, case, branch in k6_cases():
         args = _agg_tensors(case, dev)
-        got = device_build._aggregate_device(*args)
+        stats = {}
+        got = (kernels.aggregate(*args, stats=stats) if dev.type == "cuda"
+               else device_build.aggregate_bucketed_plain(*args, stats=stats))
         _same(f"K6 {label}", got, device_build.aggregate_device_plain(*args))
+        if branch and not stats[branch]:
+            raise AssertionError(f"K6 {label}: no {branch} bucket ({stats})")
         if label.startswith("padded"):  # the pad is one trailing group
             assert got[0][-1].item() == bits.EMPTY, "K6 pad group"
         n += 1
@@ -1492,8 +1522,8 @@ def sass_counts(lib_path: str, names=SASS_KERNELS) -> dict:
 
 def build_partition(tmp: str, n_genomes: int, k: int):
     """The first canonical-range partition of the scale run's occurrences,
-    padded with the 2^64-1 sentinel to a power of two, as the partitioned
-    `db build --device` hands it to the device: (canon, label, pg)."""
+    as the partitioned `db build --device` hands it to the device:
+    (canon, label, pg)."""
     canon, label = [], []
     for i in range(n_genomes):
         with open(os.path.join(tmp, f"g{i}.fa"), "rb") as f:
@@ -1504,12 +1534,18 @@ def build_partition(tmp: str, n_genomes: int, k: int):
     pbits = max(min(int(np.ceil(np.log2(max(len(canon) / (1 << 24), 2)))),
                     9, 2 * k - 1), 1)  # builder._build_partitioned's rule
     part = (canon >> np.uint64(2 * k - pbits)) == 0
-    canon, label = canon[part], label[part]
-    pad = 1 << max(int(np.ceil(np.log2(len(canon)))), 20)
-    canon = np.concatenate([canon, np.full(pad - len(canon), U64_MAX)])
-    label = np.concatenate([label, np.zeros(pad - len(label), np.int32)])
     targets = parse_targets(os.path.join(tmp, "targets.txt"))
-    return canon, label, builder._prefix_groups(targets)
+    return canon[part], label[part], builder._prefix_groups(targets)
+
+
+def pad_partition(canon, label, pg):
+    """A partition padded with the 2^64-1 sentinel to a power of two (at
+    least 2^20), as the builder handed it to the device before K6 took
+    unpadded input."""
+    pad = 1 << max(int(np.ceil(np.log2(len(canon)))), 20)
+    return (np.concatenate([canon, np.full(pad - len(canon), U64_MAX)]),
+            np.concatenate([label, np.zeros(pad - len(label), np.int32)]),
+            pg)
 
 
 def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
@@ -1522,8 +1558,9 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
     it: R = window_budget / 256 rows, W = probe_cols windows; K7 against
     the first chunk of the table's 4-cycle split, K8 against the `dense`
     classifier's two-plane table; K5 also at 65,535 targets on a
-    [dense_rows, W] grid; K6 (with the torch.sort before it) on one padded
-    partition of the scale run's occurrences."""
+    [dense_rows, W] grid; K6 on the first partition of the scale run's
+    occurrences, as the build hands it over and padded to a power of two
+    as it was before."""
     _, _, _, ss, se, _ = native.scan_reads(fa)
     stride = 256
     r_cap = min(clf.plan.max_reads, clf.plan.window_budget // stride)
@@ -1539,7 +1576,11 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
     T = clf.n_targets
     lab_big = torch.from_numpy(np.random.default_rng(5).integers(
         0, 65536, size=(dense_rows, pc)).astype(np.int32)).to(dev)
-    part = _agg_tensors(build_partition(tmp, n_genomes, k) + (True,), dev)
+    part = build_partition(tmp, n_genomes, k)
+    part_pad = _agg_tensors(pad_partition(*part) + (True,), dev)
+    part = _agg_tensors(part + (True,), dev)
+    sort_keys = {n: p[0] ^ device_build.SIGN for n, p in (
+        ("aggregate", part), ("aggregate padded", part_pad))}
 
     def counts_plain(lab, T):
         R, W = lab.shape
@@ -1572,7 +1613,6 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
     reads["probe_dense plane 2"] = _probe_reads(dt.slots2, b2, qlow2, dt.lb)
     bins = {T: flat_bins(lab, T), 65535: flat_bins(lab_big, 65535)}
     Q = qf.shape[0]
-    n_part = part[0].shape[0]
 
     def chunk_fns(i):
         args = (tbl.slots[i * rows_per : (i + 1) * rows_per], tbl.stash_keys,
@@ -1626,12 +1666,13 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
             _nbytes(lab_big), lab_big.numel(),
             lambda: torch.bincount(bins[65535][0], minlength=bins[65535][1]),
         ),
-        "aggregate": (
-            lambda: device_build._aggregate_device(*part),
-            lambda: device_build.aggregate_device_plain(*part),
-            _nbytes(*part[:3]), n_part * max(n_part.bit_length() - 1, 1),
-            None,
-        ),
+        **{name: (
+            lambda p=p: device_build._aggregate_device(*p),
+            lambda p=p: device_build.aggregate_device_plain(*p),
+            _nbytes(*p[:3]),
+            p[0].shape[0] * max(p[0].shape[0].bit_length() - 1, 1),
+            lambda name=name: torch.sort(sort_keys[name], stable=True),
+        ) for name, p in (("aggregate", part), ("aggregate padded", part_pad))},
         "probe_dense": (
             lambda: radix_table.probe_dense(dt, qf),
             lambda: radix_table.probe_dense_plain(
@@ -1670,21 +1711,25 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
                          library_ms=None if library is None
                          else _ms(library, dev, reps),
                          achieved_bytes_per_s=moved / ms * 1e3)
-        if name in ("probe_chunk", "probe", "probe_dense"):
+        if name in ("probe_chunk", "probe", "probe_dense", "aggregate",
+                    "aggregate padded"):
             # the passes of K7 (count, scatter, probe) on chunk 0, of K2 and
-            # of K8 (count, tiles, scatter, grouped probe; K8 per plane)
+            # of K8 (count, tiles, scatter, grouped probe; K8 per plane) and
+            # of K6 (range, hist, scan, scatter, the bucket pass, the
+            # single-key reduction, the row flags' scan, compact)
             out[name]["pass_ms"] = device
     # the record's K7 error covers every chunk of the split
     out["probe_chunk"]["max_abs_err"] = max(
         out["probe_chunk" + (f" chunk {i}" if i else "")]["max_abs_err"]
         for i in range(4))
-    # K6 split: the torch.sort before it, and the kernel's own pass
-    keys, seq = torch.sort(part[0] ^ device_build.SIGN, stable=True)
-    out["aggregate"]["sort_ms"] = _ms(
-        lambda: torch.sort(part[0] ^ device_build.SIGN, stable=True), dev, reps)
-    if dev.type == "cuda":
-        out["aggregate"]["kernel_only_ms"] = _ms(
-            lambda: kernels.aggregate(keys, seq, *part[1:]), dev, reps)
+    # K6's level plan on both partitions
+    for name, p in (("aggregate", part), ("aggregate padded", part_pad)):
+        stats = {}
+        if dev.type == "cuda":
+            kernels.aggregate(*p, stats=stats)
+        else:
+            device_build.aggregate_bucketed_plain(*p, stats=stats)
+        out[name]["plan"] = stats
     e, tr, rb, tiles = kernels.window_run(pc)
     return out, dict(rows=len(idx), stride=stride, windows=pc,
                      k1_run=dict(E=e, runs_a_row=-(-pc // e),
@@ -1695,6 +1740,7 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
                      if dev.type == "cuda" else None,
                      queries=len(idx) * pc, targets=T, dense_rows=dense_rows,
                      partition_entries=part[0].shape[0],
+                     padded_partition_entries=part_pad[0].shape[0],
                      chunk_rows=rows_per,
                      chunk_bins=kernels.chunk_bins(rows_per, tbl.c),
                      counts_forms={t: kernels.counts_form(t + 1, pc)

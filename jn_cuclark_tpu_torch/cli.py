@@ -288,8 +288,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write per-target .ht files")
     pb.add_argument("--device", nargs="?", const="cuda", default="cuda",
                     help="where k-mers aggregate: cuda (the default: "
-                    "torch.sort + the hand-written K6 kernel; raises "
-                    "without a CUDA device), cpu (its plain-PyTorch twin) "
+                    "the hand-written K6 kernel; raises without a CUDA "
+                    "device), cpu (its plain-PyTorch twin) "
                     "or host (the native C++ aggregate); --tsk builds and "
                     "spectrum inputs always aggregate on the host")
     pb.set_defaults(fn=cmd_db_build)

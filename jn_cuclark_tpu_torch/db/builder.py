@@ -20,7 +20,7 @@ with count > minT; when centromere labels exist, also keep multiplicity==2
 entries (relabeled to the matching centromere label when one exists).
 
 Where the aggregate runs: a torch device, "cuda" by default (device_build:
-torch.sort plus kernel K6 on CUDA, the plain twin with `device="cpu"`), or
+kernel K6 on CUDA, its bucketed twin with `device="cpu"`), or
 the native host runtime (C++) with `device="host"`.  A device aggregate
 that fails raises, and so does the default where CUDA is not available;
 nothing falls back to the host.  The build's stages report to the phase
@@ -457,33 +457,18 @@ def _build_partitioned(
     )
 
 
-_PAD_CANON = np.uint64(0xFFFFFFFFFFFFFFFF)
-
-
 def _aggregate_partition_device(kv, off, n, pg, lelement, device):
-    """One partition's aggregation on the torch device, padded to a power
-    of two (>= 2^20 entries), so every partition reuses the caching
-    allocator's blocks of one size.  Pad entries carry canonical 2^64-1,
-    which is no k-mer's canonical value at any k <= 32 (min(v, revcomp(v))
-    is all ones only if both are, and the reverse complement of the all-T
-    k-mer is 0), so they form exactly one trailing group (the device path
-    sorts as unsigned), which is sliced off.  first_seq is partition-local
-    (unused here: --tsk builds never take the partitioned path)."""
+    """One partition's aggregation on the torch device: its n occurrences
+    as they are (K6 sizes its scratch to a power of two, so partitions of
+    one build reuse the caching allocator's blocks).  first_seq is
+    partition-local (unused here: --tsk builds never take the partitioned
+    path)."""
     from .device_build import aggregate_device
 
     part = kv[off : off + n]
     canon = np.ascontiguousarray(part["k"])
     label = (part["v"] & 0xFFFF).astype(np.int32)
-    pad = 1 << max(int(np.ceil(np.log2(max(n, 1)))), 20)
-    if pad > n:
-        canon = np.concatenate(
-            [canon, np.full(pad - n, _PAD_CANON, np.uint64)]
-        )
-        label = np.concatenate([label, np.zeros(pad - n, np.int32)])
-    out = aggregate_device(canon, label, pg, lelement, device)
-    if pad > n:
-        out = tuple(a[:-1] for a in out)
-    return out
+    return aggregate_device(canon, label, pg, lelement, device)
 
 
 def _write_tsk_files(

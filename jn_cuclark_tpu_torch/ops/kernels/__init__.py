@@ -16,7 +16,8 @@ the public functions (device_pipeline.window_canonicals_plain,
 radix_table.probe_plain, probe_chunk_plain, probe_dense_plain,
 score.top2_from_labels_plain, score.sort_top2_plain,
 score.counts_from_hits_plain + read_results_plain,
-db.device_build.aggregate_device_plain) and run only for CPU tensors.
+db.device_build.aggregate_bucketed_plain, which runs K6's level plan,
+ops/bucket_plan.py, with each launch's twin) and run only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -26,9 +27,11 @@ import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 from ...utils.build import build_library
+from .. import bucket_plan
 from ..radix_table import STASH_CAP
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -52,6 +55,8 @@ K5_FORMS = ("small", "large", "wide")
 K1_THREADS = 256  # threads of a K1 block, one run of E windows each
 SORT_WARP_W = 1024  # K4's warp form: windows per read, at most
 SORT_FORMS = ("warp", "block")
+_U64_MASK = (1 << 64) - 1
+AGG_TILE = 4096  # K6's compaction: places a tile (aggregate.cu's TILE)
 
 LAUNCHES = {"window_canonicals": 0, "probe": 0, "top2": 0, "sort_top2": 0,
             "counts_top2": 0, "aggregate": 0, "probe_chunk": 0,
@@ -116,10 +121,14 @@ def _bind(name: str, lib):
                                    p],
         },
         "aggregate": {
-            "launch_group_starts": [p, p, i64, p],
-            "launch_group_mult": [p, p, p, p, p, i64, p, p],
-            "launch_group_rows": [p, p, p, p, p, i64, i64, i32,
-                                  p, p, p, p, p, p],
+            "launch_agg_range": [p, i64, p, p],
+            "launch_agg_partition": [p, p, p, i32, p, i64, p, i64, i64, i32,
+                                     p, p, p, p, p],
+            "launch_agg_bucket": [p, p, p, i64, p, i32, p, i32, i32, p, p],
+            "launch_agg_single": [p, p, p, p, i32, i64, p, p, i32, i32, p,
+                                  p],
+            "launch_agg_count_rows": [p, i64, p, p, p, p],
+            "launch_agg_compact": [p, p, p, i64, p, p, p, p, p, p, p],
         },
     }[name]
     for fn, argtypes in sigs.items():
@@ -456,43 +465,118 @@ def counts_top2(lab: torch.Tensor, n_targets: int):
     return counts, total, ibest, best, isbest, sbest
 
 
-def aggregate(keys: torch.Tensor, seq: torch.Tensor, label: torch.Tensor,
-              pg: torch.Tensor, lelement: bool):
-    """K6: the segmented pass of the DB-build aggregate over keys [n] int64
-    (canonical ^ 2^63, sorted ascending as int64), seq [n] int64 (the
-    stable sort's permutation), label [n] int32 (stream order, in
-    [0, len(pg))) and pg [L] int32 (prefix group of each label).  Returns
-    one row per group: (canon [G] int64 bits, L0 [G] int32, mult [G] int32,
-    count [G] int64, first_seq [G] int64).  Synchronises once, for G."""
-    dev = keys.device
-    _check("keys", keys, torch.int64, 1, dev)
-    _check("seq", seq, torch.int64, 1, dev)
+def aggregate(canon: torch.Tensor, label: torch.Tensor, pg: torch.Tensor,
+              lelement: bool, stats: dict | None = None):
+    """K6: the DB-build aggregate of occurrences canon [n] int64 (u64 bit
+    patterns, stream order), label [n] int32 (in [0, len(pg))) and pg [L]
+    int32 (prefix group of each label): one row per distinct canonical,
+    ascending as u64 -- (canon [G] int64 bits, L0 [G] int32, mult [G]
+    int32, count [G] int64, first_seq [G] int64).  A bucket sort fused with
+    the group pass, driven by ops/bucket_plan.run_levels; it synchronises
+    to read back the key range, each level's plan and G.  `stats`, a dict,
+    receives the plan's branch counts."""
+    dev = canon.device
+    _check("canon", canon, torch.int64, 1, dev)
     _check("label", label, torch.int32, 1, dev)
     _check("pg", pg, torch.int32, 1, dev)
-    n = keys.shape[0]
-    if seq.shape[0] != n or label.shape[0] != n:
-        raise ValueError("keys, seq and label must have one length")
-    lib = load("aggregate")
-    flags = torch.empty(n, dtype=torch.int32, device=dev)
-    # the segmented pass is three launches; they count as one K6 launch,
-    # at the last
-    _launch(lib, lib.launch_group_starts, "aggregate", dev,
-            keys.data_ptr(), flags.data_ptr(), n, count=False)
-    offs = torch.cumsum(flags, 0, dtype=torch.int64)
-    starts = torch.nonzero(flags).view(-1)  # synchronises: G is known
-    ng = starts.shape[0]
-    dsum = torch.zeros(ng, dtype=torch.int64, device=dev)
-    _launch(lib, lib.launch_group_mult, "aggregate", dev,
-            seq.data_ptr(), label.data_ptr(), pg.data_ptr(), offs.data_ptr(),
-            starts.data_ptr(), n, dsum.data_ptr(), count=False)
-    canon = torch.empty(ng, dtype=torch.int64, device=dev)
-    l0 = torch.empty(ng, dtype=torch.int32, device=dev)
-    mult = torch.empty(ng, dtype=torch.int32, device=dev)
-    count = torch.empty(ng, dtype=torch.int64, device=dev)
-    first = torch.empty(ng, dtype=torch.int64, device=dev)
-    _launch(lib, lib.launch_group_rows, "aggregate", dev,
-            keys.data_ptr(), seq.data_ptr(), label.data_ptr(),
-            starts.data_ptr(), dsum.data_ptr(), ng, n, 1 if lelement else 0,
-            canon.data_ptr(), l0.data_ptr(), mult.data_ptr(),
-            count.data_ptr(), first.data_ptr())
-    return canon, l0, mult, count, first
+    n = canon.shape[0]
+    if label.shape[0] != n:
+        raise ValueError("canon and label must have one length")
+    if n >= 1 << 32:
+        raise ValueError(f"{n} occurrences: the stream index of an entry is "
+                         "u32, so a call takes fewer than 2^32")
+    if n == 0:
+        return (canon.new_empty(0), label.new_empty(0), label.new_empty(0),
+                canon.new_empty(0), canon.new_empty(0))
+    steps = _AggregateSteps(load("aggregate"), canon, label, pg, lelement)
+    out = bucket_plan.run_levels(steps, n, bucket_plan.CAP)
+    _counted("aggregate")  # the plan's launches count as one K6 launch
+    if stats is not None:
+        stats.update(steps.stats)
+    return out
+
+
+class _AggregateSteps:
+    """K6's launches (aggregate.cu) for bucket_plan.run_levels: entry
+    buffers bufs [2, capacity, 2] int64, a row flag per place (uint8)."""
+
+    def __init__(self, lib, canon, label, pg, lelement):
+        self.lib, self.dev = lib, canon.device
+        self.canon, self.label, self.pg = canon, label, pg
+        self.lelement = 1 if lelement else 0
+        cap_n = bucket_plan.capacity(canon.shape[0])
+        self.bufs = torch.empty((2, cap_n, 2), dtype=torch.int64,
+                                device=self.dev)
+        self.rowflag = torch.empty(cap_n, dtype=torch.uint8, device=self.dev)
+        self.sms = torch.cuda.get_device_properties(
+            self.dev).multi_processor_count
+        self.stats = bucket_plan.new_stats()
+
+    def _go(self, fn, *args):
+        _launch(self.lib, fn, "aggregate", self.dev, *args, count=False)
+
+    def _buf(self, i: int) -> int:
+        return self.bufs[i].data_ptr() if i >= 0 else 0
+
+    def _i64(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(self.dev)
+
+    def range(self):
+        out = torch.empty(2, dtype=torch.int64, device=self.dev)
+        self._go(self.lib.launch_agg_range, self.canon.data_ptr(),
+                 self.canon.shape[0], out.data_ptr())
+        lo, hi = out.tolist()
+        return lo & _U64_MASK, hi & _U64_MASK
+
+    def partition(self, src, dst, table):
+        """hist, scan and scatter of every range of a level's table."""
+        nbs = 1 << table[:, 3]
+        nb_all = int(nbs.sum())
+        plan = torch.empty((3, nb_all), dtype=torch.int64, device=self.dev)
+        starts = torch.empty(nb_all, dtype=torch.int64, device=self.dev)
+        cursor = torch.empty(nb_all, dtype=torch.int64, device=self.dev)
+        # one block of 1,024 threads an SM for hist and the scatter
+        blocks = bucket_plan.block_table(table, self.sms)
+        tab, blk = self._i64(table), self._i64(blocks)
+        self._go(self.lib.launch_agg_partition, self.canon.data_ptr(),
+                 self.label.data_ptr(), self._buf(src), int(src < 0),
+                 tab.data_ptr(), len(table), blk.data_ptr(), len(blocks),
+                 nb_all, int(nbs.max()), plan.data_ptr(), starts.data_ptr(),
+                 cursor.data_ptr(), self._buf(dst))
+        return plan, starts
+
+    def bucket_pass(self, dst, plan, starts, S):
+        self._go(self.lib.launch_agg_bucket, self._buf(dst),
+                 self._buf(1 - dst), plan.data_ptr(), plan.shape[1],
+                 starts.data_ptr(), S, self.pg.data_ptr(), self.lelement,
+                 1 + dst, self.rowflag.data_ptr())
+
+    def single(self, dst, lstart, lcount):
+        for i in range(0, len(lstart), 65535):  # a grid's y extent
+            ls, lc = (self._i64(a[i : i + 65535]) for a in (lstart, lcount))
+            slot = torch.empty(2 * ls.shape[0], dtype=torch.int64,
+                               device=self.dev)
+            self._go(self.lib.launch_agg_single, self._buf(dst),
+                     self._buf(1 - dst), ls.data_ptr(), lc.data_ptr(),
+                     ls.shape[0], int(lcount[i : i + 65535].max()),
+                     slot.data_ptr(), self.pg.data_ptr(), self.lelement,
+                     1 + dst, self.rowflag.data_ptr())
+
+    def compact(self):
+        n = self.canon.shape[0]
+        nt = -(-n // AGG_TILE)
+        tcount = torch.empty(nt, dtype=torch.int32, device=self.dev)
+        tbase = torch.empty(nt, dtype=torch.int64, device=self.dev)
+        total = torch.empty(1, dtype=torch.int64, device=self.dev)
+        self._go(self.lib.launch_agg_count_rows, self.rowflag.data_ptr(), n,
+                 tcount.data_ptr(), tbase.data_ptr(), total.data_ptr())
+        g = int(total.item())  # synchronises: G is known
+        out = (torch.empty(g, dtype=torch.int64, device=self.dev),
+               torch.empty(g, dtype=torch.int32, device=self.dev),
+               torch.empty(g, dtype=torch.int32, device=self.dev),
+               torch.empty(g, dtype=torch.int64, device=self.dev),
+               torch.empty(g, dtype=torch.int64, device=self.dev))
+        self._go(self.lib.launch_agg_compact, self._buf(0), self._buf(1),
+                 self.rowflag.data_ptr(), n, tbase.data_ptr(),
+                 *(t.data_ptr() for t in out))
+        return out

@@ -1,8 +1,8 @@
 """DB build of the PyTorch port on the CPU: byte-equal .sz/.ky/.lb and .ht
 files against the reference goldens and the JAX builder, the device
-aggregate's plain twin (the CPU stand-in for torch.sort + kernel K6)
-against the host aggregate and the JAX device aggregate, one-shot and
-partitioned, and `db build` through the CLI."""
+aggregate's twins (the bucketed one, the CPU stand-in for kernel K6, and
+the plain one) against the host aggregate and the JAX device aggregate,
+one-shot and partitioned, and `db build` through the CLI."""
 
 import os
 import subprocess
@@ -151,8 +151,11 @@ def test_device_cpu_equals_host_aggregate(tmp_path, monkeypatch, k,
     stem = prof.db_stem(k, 3, 0, prof.default_gap)
     _same_files(str(tmp_path / "host"), str(tmp_path / "cpu"),
                 [stem + e for e in (".sz", ".ky", ".lb")])
-    # one call one-shot; partitioned: one per partition, padded to >= 2^20
-    assert calls and (all(n >= 1 << 20 for n in calls) == partitioned)
+    # one call one-shot; partitioned: one per partition, each with its
+    # occurrences as they are (no padding to a power of two)
+    n_occ = sum(len(native.extract_canonical(
+        (tmp_path / f"g{i}.fa").read_bytes(), k, False, 1)) for i in range(3))
+    assert sum(calls) == n_occ and (len(calls) > 1) == partitioned
 
 
 def _occurrences(rng, k, n=20_000):
@@ -192,21 +195,26 @@ def test_aggregate_device_plain_equals_jax_and_host(k, lelement):
 
 @pytest.mark.parametrize("k", [31, 32])
 def test_padded_partition_sentinel(k):
-    """A padded partition sorts its 2^64-1 pad entries to one trailing
-    group, sliced off: the top partition's real groups all survive, also
-    at k = 32 where int64 carriers would sort the pad first."""
+    """A partition padded with the 2^64-1 sentinel (as the builder handed
+    partitions to the device before K6 took them unpadded; K6 still takes
+    padded input) aggregates its pad entries to one trailing group: the top
+    partition's real groups all survive, also at k = 32 where int64
+    carriers would sort the pad first."""
     rng = np.random.default_rng(7)
     canon, label, pg = _occurrences(rng, k, n=5000)
     top = canon.max()
     kv = np.empty(len(canon), native.KV_DTYPE)
     kv["k"] = canon
     kv["v"] = (np.arange(len(canon)) << 16) | label
-    got = builder._aggregate_partition_device(kv, 0, len(canon), pg, True,
-                                              "cpu")
+    pad = (1 << 20) - len(canon)
+    got = device_build.aggregate_device(
+        np.concatenate([canon, np.full(pad, np.uint64(2**64 - 1))]),
+        np.concatenate([label, np.zeros(pad, np.int32)]), pg, True, "cpu")
     want = native.aggregate_kv_range(kv.copy(), 0, len(canon), pg, True)
+    assert got[0][-1] == np.uint64(2**64 - 1) and got[3][-1] == 254
     for g, w in zip(got[:4], want[:4]):
-        assert np.array_equal(g, w)
-    assert got[0][-1] == top
+        assert np.array_equal(g[:-1], w)
+    assert got[0][-2] == top
 
 
 def test_failing_device_aggregate_raises(tmp_path, monkeypatch):

@@ -32,10 +32,10 @@ def dev():
 
 def test_kernels_equal_their_twins(dev):
     kernels.reset_launches()
-    assert chip_smoke.check_kernels(dev) == 21 + 10 + 6 + 12 + 12 + 9 + 29 + 9
+    assert chip_smoke.check_kernels(dev) == 21 + 10 + 6 + 12 + 12 + 13 + 29 + 9
     assert kernels.LAUNCHES == {"window_canonicals": 24, "probe": 10,
                                 "top2": 6, "sort_top2": 12, "counts_top2": 12,
-                                "aggregate": 9, "probe_chunk": 29,
+                                "aggregate": 13, "probe_chunk": 29,
                                 "probe_dense": 18}
 
 
@@ -56,10 +56,12 @@ def test_new_wrappers_reject_bad_input(dev):
         kernels.sort_top2(lab.to(torch.int64))
     with pytest.raises(ValueError):
         kernels.counts_top2(lab, 0)
-    keys = torch.zeros(4, dtype=torch.int64, device=dev)
+    canon = torch.zeros(4, dtype=torch.int64, device=dev)
     label = torch.zeros(4, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError):  # seq of another length
-        kernels.aggregate(keys, keys[:3], label, label[:1], True)
+    with pytest.raises(ValueError):  # label of another length
+        kernels.aggregate(canon, label[:3], label[:1], True)
+    with pytest.raises(TypeError):  # int32 keys
+        kernels.aggregate(label, label, label[:1], True)
     assert all(v == 0 for v in kernels.LAUNCHES.values())
 
 

@@ -23,7 +23,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_phases_on_cpu(tmp_path, monkeypatch):
     dev = torch.device("cpu")
     assert chip_smoke.check_kernels(dev, big_tables=False) == (
-        21 + 10 + 6 + 12 + 12 + 9 + 29 + 9)
+        21 + 10 + 6 + 12 + 12 + 13 + 29 + 9)
     assert chip_smoke.check_goldens(dev, str(tmp_path)) == 6
     assert chip_smoke.check_golden_dbs(dev, str(tmp_path)) == 3
     dense = chip_smoke.check_dense_targets(dev, str(tmp_path), n_reads=40)
@@ -75,10 +75,14 @@ def test_phases_on_cpu(tmp_path, monkeypatch):
     assert shape["stride"] == 256 and shape["windows"] == 224
     assert shape["k1_run"]["E"] == 8 and shape["k1_run"]["block"] == [9, 28]
     assert shape["sort_form"] == "warp" and shape["sass"] is None
-    assert shape["partition_entries"] == 1 << 20
+    # the partition as the build hands it over, and padded as it was
+    assert shape["padded_partition_entries"] == 1 << 20
+    assert 0 < shape["partition_entries"] < 1 << 20
     assert set(timing) == set(chip_smoke.KERNELS) | {
         "counts_top2 T=65535", "probe_chunk chunk 1", "probe_chunk chunk 2",
-        "probe_chunk chunk 3"}
+        "probe_chunk chunk 3", "aggregate padded"}
+    assert timing["aggregate"]["plan"]["levels"] == 1
+    assert timing["aggregate padded"]["plan"]["single"] == 1
     assert sum(shape["probe_reads"][f"probe_chunk {i}"]["queries"]
                for i in range(4)) == shape["queries"]
     assert shape["counts_forms"] == {3: "small", 65535: "large"}
@@ -86,7 +90,8 @@ def test_phases_on_cpu(tmp_path, monkeypatch):
     assert all(t["bound_ms"] > 0 and t["bound_by"] in ("bytes", "operations")
                for t in timing.values())
     assert {n for n, t in timing.items() if t["library_ms"] is not None} == {
-        "sort_top2", "counts_top2", "counts_top2 T=65535"}
+        "sort_top2", "counts_top2", "counts_top2 T=65535", "aggregate",
+        "aggregate padded"}
 
 
 def test_kshift_case_plans_kshift_1():
