@@ -14,7 +14,12 @@ raises and exits non-zero before the result lines:
   2 kernels  K1-K8 on the card against their plain-PyTorch twins on the
              same inputs, exact equality (integers; tolerance 0); K1 at
              strides 64, 256 and 4,096, N on window edges, reads of exactly
-             k characters, W no multiple of its run; K4 in both forms (W at
+             k characters, W no multiple of its run; K3 in each form that
+             takes a case (small with the case's T, hash and block with
+             any label): W at the hash form's tile and past it, 3 x 224
+             windows, 224 distinct labels, one label, labels equal to T,
+             17-bit labels and labels near 2^31 - 1, negative labels, a
+             ragged R, a row of 100,000 windows; K4 in both forms (W at
              the warp form's edge and past it), one label, 224 distinct
              labels, 65,534 and 65,535, a ragged R; K5 in its
              three forms, at both sides of each form's edge; K7 across
@@ -76,8 +81,13 @@ raises and exits non-zero before the result lines:
              K7 against each chunk of the table's 4-cycle split; K2, K7,
              K8 and K6 split by pass; K6 on a build partition as it is
              and padded to 2^25, with torch.sort of its keys as the
-             library call; K1's run plan, K4's form, and the SASS
-             instruction counts of K1, K3 and K4 (cuobjdump)
+             library call; K3 in the main path's form (small), in its
+             hash form on the same batch and at 65,535 targets, and its
+             parent's block form there, with torch.mode as its library
+             call, and the form a row past the hash form's tile takes;
+             the miss mask between the probe and K3 by its device ops;
+             K1's run plan, K4's form, and the SASS instruction counts of
+             K1, K3's three forms and K4 (cuobjdump)
 
 The last two lines are the kernels' JSON record and the run's contract
 line {"ok": true, "device": {...}}.  With no CUDA device it exits 1 and
@@ -276,20 +286,53 @@ def _k2_group_cases(rng):
 
 
 def k3_cases(seed: int = 0):
-    """(label, lab [R, W] int32) on the CPU: ties, all-zero rows, W = 1,
-    one row of 100,000 windows, and labels spanning 17 bits."""
+    """(label, lab [R, W] int32, T) on the CPU, T the largest label the
+    case holds where the small form takes it (T+1 <= 4,096), else None:
+    ties, all-zero rows, W = 1, one row of 100,000 windows, labels of 17
+    bits; then the forms' edges (kernels.top2_forms): W at the hash form's
+    tile and one past it, the cycled-labels width 3 x 224, rows of 224
+    distinct labels (the fullest table), a row of one label, labels equal
+    to T at T = 16 and 4,095, labels near 2^31 - 1, negative labels (misses
+    to every form), and R no multiple of the 8 reads a block."""
     rng = np.random.default_rng(seed)
+    tile = kernels.K3_TILE_W
+    top = (1 << 31) - 1
+    near_top = rng.integers(top - 3000, top + 1, size=(64, 224))
+    near_top[::3, ::2] = 0
+    near_top[0, :40] = top
+    at_t = rng.choice([0, 16, 16, 3], size=(64, 224))
+    at_t[1] = 16
     cases = {
-        "ties": np.array([[3, 3, 5, 5, 7, 0], [2, 2, 9, 9, 9, 1],
-                          [4, 0, 4, 6, 6, 6]], np.int32),
-        "zero rows": np.zeros((5, 33), np.int32),
-        "W=1": np.array([[0], [5], [65535]], np.int32),
-        "100k-window row": rng.integers(0, 18, size=(1, 100_000)),
-        "17-bit labels": rng.integers(0, 1 << 17, size=(256, 400)),
-        "random": rng.integers(0, 6, size=(4096, 224)),
+        "ties": (np.array([[3, 3, 5, 5, 7, 0], [2, 2, 9, 9, 9, 1],
+                           [4, 0, 4, 6, 6, 6]], np.int32), 9),
+        "zero rows": (np.zeros((5, 33), np.int32), 1),
+        "W=1": (np.array([[0], [5], [65535]], np.int32), None),
+        "100k-window row": (rng.integers(0, 18, size=(1, 100_000)), 17),
+        "17-bit labels": (rng.integers(0, 1 << 17, size=(256, 400)), None),
+        "random": (rng.integers(0, 6, size=(4096, 224)), 5),
+        f"W={tile}": (rng.integers(0, 300, size=(16, tile)), 299),
+        f"W={tile + 1}": (rng.integers(0, 300, size=(16, tile + 1)), 299),
+        "W=672 T=16": (rng.integers(0, 17, size=(256, 672)), 16),
+        "W=672 T=5000": (rng.integers(0, 5001, size=(256, 672)), None),
+        "224 distinct": (np.stack([rng.permutation(4095)[:224] + 1
+                                   for _ in range(64)]), 4095),
+        "one label": (np.full((16, 224), 7), 7),
+        "labels equal to T=16": (at_t, 16),
+        "labels equal to T=4095": (rng.choice([0, 4095, 1], size=(64, 224)),
+                                   4095),
+        "labels near 2^31-1": (near_top, None),
+        "negative labels": (rng.integers(-5, 6, size=(64, 224)), 5),
+        "R=13": (rng.integers(0, 17, size=(13, 224)), 16),
     }
-    for label, lab in cases.items():
-        yield label, torch.from_numpy(lab.astype(np.int32))
+    for label, (lab, T) in cases.items():
+        yield label, torch.from_numpy(lab.astype(np.int32)), T
+
+
+def top2_as(lab: torch.Tensor, n_targets, form: str):
+    """K3 in `form` on a CUDA tensor; the plain twin on the CPU."""
+    if lab.is_cuda:
+        return kernels.top2(lab, n_targets, form=form)
+    return score.top2_from_labels(lab, n_targets)
 
 
 def k4_cases(seed: int = 0):
@@ -678,11 +721,18 @@ def check_kernels(dev, big_tables: bool = True) -> int:
                                        tbl.stash_labels, q, m1=tbl.m1, lb=tbl.lb)
         _same(f"K2 {label}", [got], [want])
         n += 1
-    for label, lab in k3_cases():
+    for label, lab, T in k3_cases():
         lab = lab.to(dev)
-        _same(f"K3 {label}", score.top2_from_labels(lab),
-              score.top2_from_labels_plain(lab))
-        n += 1
+        want = score.top2_from_labels_plain(lab)
+        # each form that takes the case: small with its T, the others
+        # with any label allowed
+        for form in kernels.top2_forms(T, lab.shape[1]):
+            before = kernels.LAUNCHES[f"top2 {form}"]
+            _same(f"K3 {label} ({form})",
+                  top2_as(lab, T if form == "small" else None, form), want)
+            if lab.is_cuda and kernels.LAUNCHES[f"top2 {form}"] != before + 1:
+                raise AssertionError(f"K3 {label}: the {form} form did not run")
+            n += 1
     for label, lab in k4_cases():
         lab = lab.to(dev)
         _same(f"K4 {label}", score.sort_top2(lab), score.sort_top2_plain(lab))
@@ -1495,7 +1545,8 @@ def _device_split(fn, dev, reps: int) -> dict:
     return out
 
 
-SASS_KERNELS = ("window_canonicals_kernel", "sort_warp_kernel", "top2_kernel")
+SASS_KERNELS = ("window_canonicals_kernel", "sort_warp_kernel", "top2_kernel",
+                "top2_small_kernel", "top2_hash_kernel")
 
 
 def sass_counts(lib_path: str, names=SASS_KERNELS) -> dict:
@@ -1557,8 +1608,9 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
     the stride-256 tier (reads of 193-250 bp), shaped as the planner shapes
     it: R = window_budget / 256 rows, W = probe_cols windows; K7 against
     the first chunk of the table's 4-cycle split, K8 against the `dense`
-    classifier's two-plane table; K5 also at 65,535 targets on a
-    [dense_rows, W] grid; K6 on the first partition of the scale run's
+    classifier's two-plane table; K3 (its small and hash forms, then the
+    hash and block forms) and K5 also at 65,535 targets on a [dense_rows,
+    W] grid; K6 on the first partition of the scale run's
     occurrences, as the build hands it over and padded to a power of two
     as it was before."""
     _, _, _, ss, se, _ = native.scan_reads(fa)
@@ -1571,8 +1623,8 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
     pc = clf._probe_cols(int(lens[idx].max()), stride)
     tbl = clf.table
     q = device_pipeline.window_canonicals(w, v, k, pc)
-    lab = radix_table.probe(tbl, q.view(-1))
-    lab = torch.where(q.view(-1) != bits.EMPTY, lab, 0).view(q.shape)
+    hits = radix_table.probe(tbl, q.view(-1))
+    lab = device_pipeline._masked(q, hits)
     T = clf.n_targets
     lab_big = torch.from_numpy(np.random.default_rng(5).integers(
         0, 65536, size=(dense_rows, pc)).astype(np.int32)).to(dev)
@@ -1612,6 +1664,13 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
     reads["probe_dense plane 1"] = _probe_reads(dt.slots1, b1, qlow1, dt.lb)
     reads["probe_dense plane 2"] = _probe_reads(dt.slots2, b2, qlow2, dt.lb)
     bins = {T: flat_bins(lab, T), 65535: flat_bins(lab_big, 65535)}
+    # K3's rows: (grid, n_targets, form); the main path's is "top2"
+    top2_rows = {
+        "top2": (lab, T, kernels.top2_form(T, pc)),
+        "top2 hash": (lab, None, kernels.top2_form(None, pc)),
+        "top2 T=65535": (lab_big, 65535, kernels.top2_form(65535, pc)),
+        "top2 block T=65535": (lab_big, 65535, "block"),
+    }
     Q = qf.shape[0]
 
     def chunk_fns(i):
@@ -1644,11 +1703,14 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
             _nbytes(qf) + reads["probe"]["bytes"] + stash_bytes,
             Q * (tbl.c + STASH), None,
         ),
-        "top2": (
-            lambda: score.top2_from_labels(lab),
-            lambda: score.top2_from_labels_plain(lab),
-            _nbytes(lab), lab.numel(), None,
-        ),
+        # K3 in the form each shape takes (top2_rows), and its parent's
+        # block form on the 65,535-target grid; torch.mode computes the top
+        # label alone, zeros counted
+        **{name: (
+            lambda g=g, t=t, f=f: top2_as(g, t, f),
+            lambda g=g: score.top2_from_labels_plain(g),
+            _nbytes(g), g.numel(), lambda g=g: torch.mode(g, dim=1),
+        ) for name, (g, t, f) in top2_rows.items()},
         "sort_top2": (
             lambda: score.sort_top2(lab),
             lambda: score.sort_top2_plain(lab),
@@ -1718,6 +1780,26 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
             # of K6 (range, hist, scan, scatter, the bucket pass, the
             # single-key reduction, the row flags' scan, compact)
             out[name]["pass_ms"] = device
+    # the form each K3 row launched, and the form a row past the hash
+    # form's tile takes
+    wide = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 65536, size=(8, kernels.K3_TILE_W + 1)).astype(np.int32)).to(dev)
+    top2_forms = {}
+    for name, (g, t, f) in {**top2_rows, "top2 past the tile": (
+            wide, 65535, kernels.top2_form(65535, wide.shape[1]))}.items():
+        kernels.reset_launches()
+        _same(name, top2_as(g, t, f), score.top2_from_labels_plain(g))
+        top2_forms[name] = dict(shape=list(g.shape), form=f, launches={
+            x: kernels.LAUNCHES[f"top2 {x}"] for x in kernels.TOP2_FORMS})
+    # the miss mask between the probe and K3 (device_pipeline._masked):
+    # glue on every path, timed by its device ops in the trace
+    mask_bytes = _nbytes(q, hits) + _nbytes(lab)
+    mask_ops = (_device_split(lambda: device_pipeline._masked(q, hits), dev,
+                              reps) if dev.type == "cuda" else {})
+    mask_glue = dict(
+        ms=sum(mask_ops.values()) if mask_ops else None, ops=mask_ops,
+        event_ms=_ms(lambda: device_pipeline._masked(q, hits), dev, reps),
+        bytes=mask_bytes, bound_ms=_bound(mask_bytes, q.numel())[0])
     # the record's K7 error covers every chunk of the split
     out["probe_chunk"]["max_abs_err"] = max(
         out["probe_chunk" + (f" chunk {i}" if i else "")]["max_abs_err"]
@@ -1736,6 +1818,8 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
                                  block=[rb, tr], grid=[-(-len(idx) // rb),
                                                        tiles]),
                      sort_form=kernels.sort_form(pc),
+                     top2_forms=top2_forms,
+                     mask_glue=mask_glue,
                      sass=sass_counts(kernels.library_path())
                      if dev.type == "cuda" else None,
                      queries=len(idx) * pc, targets=T, dense_rows=dense_rows,
@@ -1850,34 +1934,37 @@ def main() -> int:
     return 0
 
 
-# the kernels each main path must launch
+# the kernels each main path must launch, with K3's form where it runs
+# K3: small at config 2's 16 targets, hash at the RefSeq shape's 5,000
+_SMALL = {"top2", "top2 small"}
+_HASH = {"top2", "top2 hash"}
 PATH_KERNELS = {
     "db build": {"aggregate"},
-    "classify": {"window_canonicals", "probe", "top2"},
+    "classify": {"window_canonicals", "probe", *_SMALL},
     "extended": {"window_canonicals", "probe", "sort_top2"},
-    "paired": {"window_canonicals", "probe", "top2"},
+    "paired": {"window_canonicals", "probe", *_SMALL},
     "dense 65535 targets": {"window_canonicals", "probe", "counts_top2"},
     "cycled counts": {"window_canonicals", "probe_chunk", "counts_top2"},
     "cycled counts extended": {"window_canonicals", "probe_chunk",
                                "counts_top2"},
     "cycle-outer files": {"window_canonicals", "probe_chunk", "counts_top2"},
-    "cycled labels": {"window_canonicals", "probe_chunk", "top2"},
-    "dense": {"window_canonicals", "probe_dense", "top2"},
-    "auto dense": {"window_canonicals", "probe_dense", "top2"},
+    "cycled labels": {"window_canonicals", "probe_chunk", *_SMALL},
+    "dense": {"window_canonicals", "probe_dense", *_SMALL},
+    "auto dense": {"window_canonicals", "probe_dense", *_SMALL},
     "auto cycled": {"window_canonicals", "probe_chunk", "counts_top2"},
     "refseq db build": {"aggregate"},
-    "refseq resident": {"window_canonicals", "probe", "top2"},
-    "refseq cycled": {"window_canonicals", "probe_chunk", "top2"},
-    "refseq dense": {"window_canonicals", "probe_dense", "top2"},
-    "mesh db": {"window_canonicals", "probe_chunk", "top2"},
+    "refseq resident": {"window_canonicals", "probe", *_HASH},
+    "refseq cycled": {"window_canonicals", "probe_chunk", *_HASH},
+    "refseq dense": {"window_canonicals", "probe_dense", *_HASH},
+    "mesh db": {"window_canonicals", "probe_chunk", *_SMALL},
     "mesh db extended": {"window_canonicals", "probe_chunk", "sort_top2"},
-    "mesh db paired": {"window_canonicals", "probe_chunk", "top2"},
+    "mesh db paired": {"window_canonicals", "probe_chunk", *_SMALL},
     "mesh db cycled counts": {"window_canonicals", "probe_chunk",
                               "counts_top2"},
-    "mesh db cycled labels": {"window_canonicals", "probe_chunk", "top2"},
-    "mesh dp": {"window_canonicals", "probe", "top2"},
+    "mesh db cycled labels": {"window_canonicals", "probe_chunk", *_SMALL},
+    "mesh dp": {"window_canonicals", "probe", *_SMALL},
     "mesh dp extended": {"window_canonicals", "probe", "sort_top2"},
-    "mesh dp x db": {"window_canonicals", "probe_chunk", "top2"},
+    "mesh dp x db": {"window_canonicals", "probe_chunk", *_SMALL},
     "mesh dp x db extended": {"window_canonicals", "probe_chunk",
                               "sort_top2"},
 }

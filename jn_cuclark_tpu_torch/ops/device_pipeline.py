@@ -97,13 +97,14 @@ def score_from_labels(lab, *, n_targets: int, extended=False):
     """Per-read scoring of per-window labels lab [R, W] int32 (label+1,
     0 = miss): (total, ibest, best, sbest, extra), the scalars [R] int32.
 
-    extended=False -> K3 top-2, extra an empty [R, 0] placeholder;
+    extended=False -> K3 top-2 (its form follows n_targets and W,
+    kernels.top2_form), extra an empty [R, 0] placeholder;
     "sorted" -> K4: extra is the sorted label grid [R, W] (int16 carrying
     u16; labels must be below 65,536), which the native formatter expands
     to the per-target columns; True -> K5: extra is the dense [R, T+1]
     count matrix."""
     if not extended:
-        total, ib, b, isb, sb = score.top2_from_labels(lab)
+        total, ib, b, isb, sb = score.top2_from_labels(lab, n_targets)
         extra = torch.zeros((lab.shape[0], 0), dtype=torch.int32,
                             device=lab.device)
     elif extended == "sorted":

@@ -52,15 +52,18 @@ SMEM_BYTES = 232_448  # shared memory one H100 block may use
 K5_SMALL_T1 = 4096  # small form: T+1 histogram columns per read, at most
 K5_TILE_W = 4096  # large form: windows per read, at most
 K5_FORMS = ("small", "large", "wide")
+K3_TILE_W = 4096  # K3's hash form: windows per read, at most
+TOP2_FORMS = ("small", "hash", "block")
 K1_THREADS = 256  # threads of a K1 block, one run of E windows each
 SORT_WARP_W = 1024  # K4's warp form: windows per read, at most
 SORT_FORMS = ("warp", "block")
 _U64_MASK = (1 << 64) - 1
 AGG_TILE = 4096  # K6's compaction: places a tile (aggregate.cu's TILE)
 
+# a launch of K3 also counts under "top2 <form>", the form it took
 LAUNCHES = {"window_canonicals": 0, "probe": 0, "top2": 0, "sort_top2": 0,
             "counts_top2": 0, "aggregate": 0, "probe_chunk": 0,
-            "probe_dense": 0}
+            "probe_dense": 0, **{f"top2 {f}": 0 for f in TOP2_FORMS}}
 _count_lock = threading.Lock()
 _libs: dict = {}
 _load_lock = threading.Lock()
@@ -115,7 +118,7 @@ def _bind(name: str, lib):
             "launch_probe_dense": [p, p, p, p, p, p, i64, i32, i32, i32, i32,
                                    i32, i32, i32, i32, i32, i32, i32, i32,
                                    p, p, p, p, p],
-            "launch_top2": [p, i64, i64, p, p, p, p, p, p],
+            "launch_top2": [p, i64, i64, i32, i32, p, p, p, p, p, p],
             "launch_sort_top2": [p, i64, i64, i32, p, p, p, p, p, p, p],
             "launch_counts_top2": [p, i64, i64, i32, i32, p, p, p, p, p, p,
                                    p],
@@ -392,19 +395,56 @@ def probe_dense(slots1: torch.Tensor, slots2: torch.Tensor,
     return out
 
 
-def top2(lab: torch.Tensor):
+def top2(lab: torch.Tensor, n_targets: int | None = None,
+         form: str | None = None):
     """K3: (total, ibest, best, isbest, sbest), each [R] int32, of the
-    per-window labels lab [R, W] int32 (0 = miss)."""
+    per-window labels lab [R, W] int32 (0 = miss).  With n_targets = T
+    the labels must lie in [0, T] (the small form skips any other); with
+    None any label counts, and labels <= 0 are misses.  `form` forces one
+    of top2_forms(n_targets, W); by default top2_form picks it."""
     dev = lab.device
     _check("lab", lab, torch.int32, 2, dev)
     R, W = lab.shape
+    forms = top2_forms(n_targets, W)
+    form = form or forms[0]
+    if form not in forms:
+        raise ValueError(f"K3's {form!r} form does not take rows of {W} "
+                         f"windows at n_targets={n_targets}: {forms}")
     lib = load()
     outs = torch.empty((5, R), dtype=torch.int32, device=dev)
     total, ibest, best, isbest, sbest = outs
     _launch(lib, lib.launch_top2, "top2", dev,
-            lab.data_ptr(), R, W, total.data_ptr(), ibest.data_ptr(),
+            lab.data_ptr(), R, W, n_targets + 1 if form == "small" else 0,
+            TOP2_FORMS.index(form), total.data_ptr(), ibest.data_ptr(),
             best.data_ptr(), isbest.data_ptr(), sbest.data_ptr())
+    _counted(f"top2 {form}")
     return total, ibest, best, isbest, sbest
+
+
+def check_targets(n_targets: int):
+    """Raise unless n_targets is a target count the scoring kernels take."""
+    if not 1 <= n_targets < (1 << 31) - 1:
+        raise ValueError(f"bad target count {n_targets}")
+
+
+def top2_forms(n_targets: int | None, w: int) -> tuple[str, ...]:
+    """K3's forms that take rows of w windows with labels in [0, n_targets]
+    (None: any label), in the order top2_form prefers them: "small" (a warp
+    per read, a histogram of T+1 columns in shared memory) where T is
+    known and T+1 <= K5_SMALL_T1; "hash" (a warp per read, a shared-memory
+    hash of its labels) where w <= K3_TILE_W; "block" (a block per read,
+    histograms over chunks of the label range) at any shape."""
+    if n_targets is not None:
+        check_targets(n_targets)
+    small = n_targets is not None and n_targets + 1 <= K5_SMALL_T1
+    return (("small",) if small else ()) + (
+        ("hash",) if w <= K3_TILE_W else ()) + ("block",)
+
+
+def top2_form(n_targets: int | None, w: int) -> str:
+    """K3's form for rows of w windows over labels in [0, n_targets]: the
+    first of top2_forms (small, else hash, else block)."""
+    return top2_forms(n_targets, w)[0]
 
 
 def sort_top2(lab: torch.Tensor):
@@ -450,8 +490,7 @@ def counts_top2(lab: torch.Tensor, n_targets: int):
     collects misses) and read_results' top two over columns 1..T."""
     dev = lab.device
     _check("lab", lab, torch.int32, 2, dev)
-    if not 1 <= n_targets < (1 << 31) - 1:
-        raise ValueError(f"bad target count {n_targets}")
+    check_targets(n_targets)
     R, W = lab.shape
     form = K5_FORMS.index(counts_form(n_targets + 1, W))
     lib = load()

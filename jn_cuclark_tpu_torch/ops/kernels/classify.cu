@@ -22,11 +22,10 @@
 // synchronise, allocates nothing, and returns cudaGetLastError() so a
 // refused launch surfaces at once.
 //
-// K3 is a first, simple kernel: one block per read.  K1, K2, K4, K5, K7
-// and K8 are redesigned for the card (their notes below say what bounds
-// them and what the design does about it); K4 keeps K3's block form for
-// rows wider than its warp form takes.  The DB-build aggregate (K6) lives
-// in aggregate.cu.
+// Every kernel here is redesigned for the card (their notes below say what
+// bounds them and what the design does about it); K3 and K4 keep the
+// first, simple block form for rows wider than their warp forms take.  The
+// DB-build aggregate (K6) lives in aggregate.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -958,12 +957,15 @@ plane2_local_kernel(const u32* __restrict__ slots2, const u64* __restrict__ q,
 // ---------------------------------------------------------------- K3, K4
 // Per read: the count of each nonzero label, then the top two labels under
 // (count desc, label asc) -- the reference's resultKernel order
-// (CuClarkDB.cu:1361-1411).  One block per read.  A row may hold millions
-// of windows, so nothing assumes it fits shared memory: the block first
-// finds the row's positive label range [lo, hi], then histograms it in
-// shared-memory chunks of K3_HIST labels (one pass over the row per chunk)
-// and merges each chunk's top two into a running top two.  Bound by the
-// row reads (once, plus once per chunk) and the shared-memory atomics.
+// (CuClarkDB.cu:1361-1411).  The block form: one block per read.  A row
+// may hold millions of windows, so nothing assumes it fits shared memory:
+// the block first finds the row's positive label range [lo, hi], then
+// histograms it in shared-memory chunks of K3_HIST labels (one pass over
+// the row per chunk) and merges each chunk's top two into a running top
+// two.  Bound by the row reads (once, plus once per chunk) and the
+// shared-memory atomics, and its cost grows with the label range.  K3
+// takes it only for rows wider than K3_TILE_W at more than K5_SMALL_T1 - 1
+// targets (kernels.top2_form); its warp forms follow K5's section.
 //
 // K4's block form (SORTED; rows wider than K4_WARP_W, kernels.sort_form)
 // also writes the row's labels sorted ascending, zeros first, as u16 -- a
@@ -971,9 +973,8 @@ plane2_local_kernel(const u32* __restrict__ slots2, const u64* __restrict__ q,
 // chunk's labels at offsets from a block scan of the chunk's histogram.
 // Each output position finds its label by a binary search of the scanned
 // histogram, so the writes are coalesced whatever the run lengths.  It
-// adds one row write (2 B per window) to K3's traffic.  K3 is still this
-// first, simple form at every width; K4's rows up to K4_WARP_W take the
-// warp form below.
+// adds one row write (2 B per window) to K3's traffic.  K4's rows up to
+// K4_WARP_W take the warp form below.
 #define K3_THREADS 128
 #define K3_WARPS (K3_THREADS / 32)
 #define K3_HIST 8192
@@ -1505,6 +1506,53 @@ __device__ __forceinline__ void zero_span(int* __restrict__ dst, long long n) {
     dst[i] = 0;
 }
 
+// A lane's K5_DEPTH labels of one row of W windows from column base on
+// (-1 past the row), all loads in flight before the caller's first atomic:
+// label u is column base + 32 u + lane, so a warp's loads are coalesced.
+__device__ __forceinline__ void load_labels(const int* __restrict__ row,
+                                            long long W, long long base,
+                                            int lane, int (&v)[K5_DEPTH]) {
+#pragma unroll
+  for (int u = 0; u < K5_DEPTH; ++u) {
+    long long j = base + 32 * u + lane;
+    v[u] = j < W ? __ldg(row + j) : -1;
+  }
+}
+
+// A lane's labels in order as runs of equal values: add(label, run length)
+// once per run, at its last label.  A read's hits mostly carry one label,
+// so a lane of such a read adds once where it would add K5_DEPTH times;
+// unrolled, the run test is a compare and a select per label.
+template <typename Add>
+__device__ __forceinline__ void for_runs(const int (&v)[K5_DEPTH], Add add) {
+  int run = 1;
+#pragma unroll
+  for (int u = 0; u < K5_DEPTH; ++u) {
+    if (u + 1 < K5_DEPTH && v[u + 1] == v[u]) {
+      ++run;
+    } else {
+      add(v[u], run);
+      run = 1;
+    }
+  }
+}
+
+// A warp's total over columns 1..T1-1 of its histogram h and the top two
+// of those columns (keys from rank_key), in every lane.
+__device__ __forceinline__ void warp_top2_columns(const int* h, int T1,
+                                                  int lane, int& tot, u64& a1,
+                                                  u64& a2) {
+  tot = 0;
+  a1 = a2 = 0;
+  for (int c = 1 + lane; c < T1; c += 32) {
+    int n = h[c];
+    tot += n;
+    if (n > 0) push_top2(a1, a2, rank_key(n, c));
+  }
+  for (int o = 16; o; o >>= 1) tot += __shfl_xor_sync(0xffffffffu, tot, o);
+  warp_merge2(a1, a2);
+}
+
 __global__ void __launch_bounds__(K5_WARPS * 32)
 counts_small_kernel(const int* __restrict__ lab, long long R, long long W,
                     int T1, int* __restrict__ counts, int* __restrict__ total,
@@ -1520,26 +1568,16 @@ counts_small_kernel(const int* __restrict__ lab, long long R, long long W,
     int* h = hist + warp * T1;
     const int* row = lab + (r0 + warp) * W;
     for (long long base = 0; base < W; base += 32 * K5_DEPTH) {
-      int v[K5_DEPTH];  // all loads in flight before the first atomic
-#pragma unroll
-      for (int u = 0; u < K5_DEPTH; ++u) {
-        long long j = base + 32 * u + lane;
-        v[u] = j < W ? __ldg(row + j) : -1;
-      }
+      int v[K5_DEPTH];
+      load_labels(row, W, base, lane, v);
 #pragma unroll
       for (int u = 0; u < K5_DEPTH; ++u)
         if ((unsigned)v[u] < (unsigned)T1) atomicAdd(&h[v[u]], 1);
     }
     __syncwarp();
-    int tot = 0;
-    u64 a1 = 0, a2 = 0;
-    for (int c = 1 + lane; c < T1; c += 32) {
-      int n = h[c];
-      tot += n;
-      if (n > 0) push_top2(a1, a2, rank_key(n, c));
-    }
-    for (int o = 16; o; o >>= 1) tot += __shfl_xor_sync(0xffffffffu, tot, o);
-    warp_merge2(a1, a2);
+    int tot;
+    u64 a1, a2;
+    warp_top2_columns(h, T1, lane, tot, a1, a2);
     if (lane == 0)
       store_top2(r0 + warp, tot, a1, a2, total, ibest, best, isbest, sbest);
   }
@@ -1653,8 +1691,168 @@ counts_top2_kernel(const int* __restrict__ lab, long long W, int T1,
   }
 }
 
+// ------------------------------------------------------- K3, warp forms
+// Replaces score.py:41 top2_from_labels (sort, then :57 top2_from_sorted):
+// per read the total of its positive labels and the top two labels under
+// (count desc, label asc; 0 = NA).  Bound by bytes: the [R, W] label read
+// once (29 MB at the config-2 shape, R = 32,768, W = 224: 0.0090 ms at
+// 3.35 TB/s).  The block form above ran 0.0723 ms there on an H100 80GB
+// HBM3 at 700 W, 12% of that: a 128-thread block held under two labels a
+// thread, its 32 KiB static histogram kept seven blocks (28 warps) on an
+// SM, it read the row twice
+// (the range, then the histogram) and ran about a dozen __syncthreads a
+// read, and its scan covered the label range [lo, hi], not the at most W
+// labels present (thousands of entries a read at 5,001 targets, and the
+// row read again per 8,192-label chunk at 65,535).  Here a warp holds one
+// read: the row is read once, with K5_DEPTH loads a lane in flight before
+// its shared atomics (W = 224 in one round), a lane adds a run of equal
+// labels once (for_runs), nothing but the five scalars is stored, and no
+// phase spans the block.  Two warp forms, chosen by shape alone
+// (kernels.top2_form; the block form above takes the rest):
+//
+//   small  T+1 <= K5_SMALL_T1, T known: K5's small form without its count
+//          store.  Each warp zeroes its own histogram of T+1 ints in
+//          dynamic shared memory, adds labels 1..T, and scans columns
+//          1 + lane, 1 + lane + 32, ...  A label outside [0, T] is skipped:
+//          the caller promises none (score_from_labels gets labels in
+//          [0, T]; a mesh's shard labels sum into that range, since a
+//          window matches in at most one shard).
+//   hash   any label in [1, 2^31), rows of W <= K3_TILE_W: the warp's
+//          labels go into an open-addressing table in shared memory
+//          (label -> count, a power of two >= 2W slots, 0 = free;
+//          atomicCAS insert) as in counts_large_kernel, but a table per
+//          warp, and a bit per occupied slot.  The scan covers the table's
+//          occupied slots (the bits), never the label range, and clears
+//          them.  The grid is persistent: a warp zeroes its table once and
+//          takes read after read.  On the H100, zeroing and scanning all
+//          2W slots a read, or scanning every slot without the bits, made
+//          rows of one label (the common read) clearly slower; on rows of
+//          many distinct labels the bits' atomicOr costs a little more
+//          than either.  A block holds as many reads as keep its tables
+//          within K3_HASH_SMEM (eight at W = 224: 4,160 B a table), so
+//          several blocks share an SM.
+//
+// The order of the atomics does not matter: the counts are exact, and the
+// top two of distinct rank keys is the same in any visiting order.
+#define K3_TILE_W 4096            // hash form: windows a read, at most
+#define K3_HASH_SMEM (36 * 1024)  // hash form: a block's tables, at most
+enum { K3_SMALL = 0, K3_HASH = 1, K3_BLOCK = 2 };
+
+__global__ void __launch_bounds__(K5_WARPS * 32)
+top2_small_kernel(const int* __restrict__ lab, long long R, long long W,
+                  int T1, int* __restrict__ total, int* __restrict__ ibest,
+                  int* __restrict__ best, int* __restrict__ isbest,
+                  int* __restrict__ sbest) {
+  extern __shared__ int hist[];  // [K5_WARPS][T1]
+  int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  long long r = (long long)blockIdx.x * K5_WARPS + warp;
+  if (r >= R) return;  // uniform across the warp; no block-wide phase
+  int* h = hist + warp * T1;
+  for (int c = lane; c < T1; c += 32) h[c] = 0;
+  __syncwarp();
+  const int* row = lab + r * W;
+  for (long long base = 0; base < W; base += 32 * K5_DEPTH) {
+    int v[K5_DEPTH];
+    load_labels(row, W, base, lane, v);
+    for_runs(v, [&](int x, int n) {
+      if ((unsigned)x - 1u < (unsigned)(T1 - 1)) atomicAdd(&h[x], n);
+    });
+  }
+  __syncwarp();
+  int tot;
+  u64 a1, a2;
+  warp_top2_columns(h, T1, lane, tot, a1, a2);
+  if (lane == 0)
+    store_top2(r, tot, a1, a2, total, ibest, best, isbest, sbest);
+}
+
+// n more of label x > 0 into a table of 2^(32 - shift) slots: keys (0 =
+// free) and counts, and a bit per occupied slot in `used`.  At most W
+// labels in >= 2W slots: a free slot exists.  A slot is read before the
+// atomicCAS, so a label already in the table costs a plain load and its
+// atomicAdd.  On the H100 that read saved time on rows of one label at
+// 672 windows and cost a little on rows of 224 distinct labels.
+__device__ __forceinline__ void hash_add(int* keys, int* cnt, unsigned* used,
+                                         int shift, int x, int n) {
+  unsigned mask = 0xFFFFFFFFu >> shift;
+  unsigned s = ((unsigned)x * 2654435761u) >> shift;
+  for (;;) {
+    int k = ((volatile int*)keys)[s];
+    if (k == 0) {
+      k = atomicCAS(&keys[s], 0, x);
+      if (k == 0) {
+        atomicOr(&used[s >> 5], 1u << (s & 31));
+        k = x;
+      }
+    }
+    if (k == x) {
+      atomicAdd(&cnt[s], n);
+      return;
+    }
+    s = (s + 1) & mask;
+  }
+}
+
+// Ints of one warp's table of 2^log2cap slots: keys, counts, used bits.
+__host__ __device__ __forceinline__ int hash_table_ints(int log2cap) {
+  return (2 << log2cap) + (((1 << log2cap) + 31) >> 5);
+}
+
+// A persistent grid: warp w of the grid takes rows w, w + the grid's warps,
+// ...  Its table is zeroed once; after a row the scan clears the slots the
+// row used (the used bits name them), so a row costs O(its distinct
+// labels) of shared-memory work besides its loads, not O(2W) slots.
+__global__ void __launch_bounds__(K5_WARPS * 32)
+top2_hash_kernel(const int* __restrict__ lab, long long R, long long W,
+                 int log2cap, int* __restrict__ total, int* __restrict__ ibest,
+                 int* __restrict__ best, int* __restrict__ isbest,
+                 int* __restrict__ sbest) {
+  extern __shared__ int tab[];  // per warp: hash_table_ints(log2cap)
+  const int cap = 1 << log2cap, words = (cap + 31) >> 5;
+  const int warps = blockDim.x >> 5, n_ints = hash_table_ints(log2cap);
+  int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int* keys = tab + warp * n_ints;
+  int* cnt = keys + cap;
+  unsigned* used = (unsigned*)(cnt + cap);
+  for (int j = lane; j < n_ints; j += 32) keys[j] = 0;
+  __syncwarp();
+  for (long long r = (long long)blockIdx.x * warps + warp; r < R;
+       r += (long long)gridDim.x * warps) {  // uniform across the warp
+    const int* row = lab + r * W;
+    int tot = 0;
+    for (long long base = 0; base < W; base += 32 * K5_DEPTH) {
+      int v[K5_DEPTH];
+      load_labels(row, W, base, lane, v);
+      for_runs(v, [&](int x, int n) {
+        if (x > 0) {
+          tot += n;
+          hash_add(keys, cnt, used, 32 - log2cap, x, n);
+        }
+      });
+    }
+    __syncwarp();
+    u64 a1 = 0, a2 = 0;
+    for (int i = lane; i < words; i += 32) {
+      unsigned b = used[i];
+      if (b) used[i] = 0;
+      for (; b; b &= b - 1) {
+        int j = (i << 5) + __ffs(b) - 1;
+        push_top2(a1, a2, rank_key(cnt[j], keys[j]));
+        keys[j] = 0;
+        cnt[j] = 0;
+      }
+    }
+    for (int o = 16; o; o >>= 1) tot += __shfl_xor_sync(0xffffffffu, tot, o);
+    warp_merge2(a1, a2);
+    if (lane == 0)
+      store_top2(r, tot, a1, a2, total, ibest, best, isbest, sbest);
+    __syncwarp();  // the table is clear before the next row's inserts
+  }
+}
+
 // ---------------------------------------------------------------- launchers
 static long long lmin(long long a, long long b) { return a < b ? a : b; }
+static long long lmax(long long a, long long b) { return a > b ? a : b; }
 
 // A grid that fills the current device: its SMs times the blocks of
 // `threads` threads one SM holds.
@@ -1917,14 +2115,44 @@ int launch_probe_dense(const void* slots1, const void* slots2,
                            st);
 }
 
-int launch_top2(const void* lab, long long R, long long W, void* total,
-                void* ibest, void* best, void* isbest, void* sbest,
-                void* stream) {
+// form: kernels.top2_form(T, W), 0 = small (T1 = T+1 histogram columns),
+// 1 = hash, 2 = block; refused where the shape does not fit the form.
+int launch_top2(const void* lab, long long R, long long W, int T1, int form,
+                void* total, void* ibest, void* best, void* isbest,
+                void* sbest, void* stream) {
   if (R == 0) return 0;
-  if (R > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
-  top2_kernel<false><<<(unsigned)R, K3_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)lab, W, (int*)total, (int*)ibest, (int*)best, (int*)isbest,
-      (int*)sbest, nullptr);
+  if (R > 0x7FFFFFFFLL || W < 0) return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int* l = (const int*)lab;
+  int *t = (int*)total, *ib = (int*)ibest, *b = (int*)best,
+      *isb = (int*)isbest, *sb = (int*)sbest;
+  if (form == K3_SMALL) {
+    if (T1 < 2 || T1 > K5_SMALL_T1) return (int)cudaErrorInvalidValue;
+    size_t smem = (size_t)K5_WARPS * T1 * sizeof(int);
+    if (int rc = allow_smem((const void*)top2_small_kernel, smem)) return rc;
+    top2_small_kernel<<<(unsigned)((R + K5_WARPS - 1) / K5_WARPS),
+                        K5_WARPS * 32, smem, st>>>(l, R, W, T1, t, ib, b,
+                                                   isb, sb);
+  } else if (form == K3_HASH) {
+    if (W > K3_TILE_W) return (int)cudaErrorInvalidValue;
+    int log2cap = 1;
+    while ((1LL << log2cap) < 2 * W) ++log2cap;
+    size_t table = sizeof(int) * hash_table_ints(log2cap);
+    int warps = (int)lmin(K5_WARPS, lmax(K3_HASH_SMEM / table, 1));
+    size_t smem = warps * table;
+    long long grid = 0;
+    if (int rc = occupancy_grid((const void*)top2_hash_kernel, warps * 32,
+                                smem, &grid))
+      return rc;
+    top2_hash_kernel<<<(unsigned)lmin(grid, (R + warps - 1) / warps),
+                       warps * 32, smem, st>>>(l, R, W, log2cap, t, ib, b,
+                                               isb, sb);
+  } else if (form == K3_BLOCK) {
+    top2_kernel<false><<<(unsigned)R, K3_THREADS, 0, st>>>(l, W, t, ib, b,
+                                                           isb, sb, nullptr);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

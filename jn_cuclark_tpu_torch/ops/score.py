@@ -24,14 +24,19 @@ from __future__ import annotations
 import torch
 
 
-def top2_from_labels(lab: torch.Tensor):
+def top2_from_labels(lab: torch.Tensor, n_targets: int | None = None):
     """(total, index_best, best, index_sbest, s_best), each [R] int32, from
-    per-window (label+1) values lab [R, W] int32 (0 = miss/padding)."""
-    if lab.device.type == "cuda":
-        from . import kernels
+    per-window (label+1) values lab [R, W] int32 (0 = miss/padding).
+    n_targets = T promises labels in [0, T] and lets K3 take its small
+    form (kernels.top2_form), which skips any label above T; None takes
+    any label."""
+    from . import kernels
 
-        return kernels.top2(lab)
+    if lab.device.type == "cuda":
+        return kernels.top2(lab, n_targets)
     _check_device(lab)
+    if n_targets is not None:
+        kernels.check_targets(n_targets)
     return top2_from_labels_plain(lab)
 
 

@@ -32,11 +32,14 @@ def dev():
 
 def test_kernels_equal_their_twins(dev):
     kernels.reset_launches()
-    assert chip_smoke.check_kernels(dev) == 21 + 10 + 6 + 12 + 12 + 13 + 29 + 9
-    assert kernels.LAUNCHES == {"window_canonicals": 24, "probe": 10,
-                                "top2": 6, "sort_top2": 12, "counts_top2": 12,
+    # + 2: the two kshift = 1 tables (big_tables), each probed twice
+    assert chip_smoke.check_kernels(dev) == (
+        21 + 10 + 45 + 12 + 12 + 13 + 29 + 9 + 2)
+    assert kernels.LAUNCHES == {"window_canonicals": 24, "probe": 10 + 2,
+                                "top2": 45, "sort_top2": 12, "counts_top2": 12,
                                 "aggregate": 13, "probe_chunk": 29,
-                                "probe_dense": 18}
+                                "probe_dense": 18 + 2, "top2 small": 13,
+                                "top2 hash": 15, "top2 block": 17}
 
 
 def test_goldens_through_the_kernels(dev, tmp_path):
@@ -71,8 +74,9 @@ def test_chunk_and_dense_wrappers_reject_bad_input(dev):
     sk = torch.full((64,), -1, dtype=torch.int64, device=dev)
     sl = torch.zeros(64, dtype=torch.int32, device=dev)
     q = torch.zeros(5, dtype=torch.int64, device=dev)
-    with pytest.raises(ValueError):  # a chunk outside a 2^3-row table
-        kernels.probe_chunk(slots, sk, sl, q, 8, 3, 2, True)
+    with pytest.raises(ValueError):  # a start at 2^62 (a start past the
+        # table, as a db shard's chunk may have, probes as misses: below)
+        kernels.probe_chunk(slots, sk, sl, q, 1 << 62, 3, 2, True)
     with pytest.raises(ValueError):  # a stash of the wrong size
         kernels.probe_chunk(slots, sk[:3], sl[:3], q, 0, 3, 2, True)
     with pytest.raises(ValueError):  # plane 1 of 4 rows is not 2^3
@@ -81,7 +85,8 @@ def test_chunk_and_dense_wrappers_reject_bad_input(dev):
         kernels.probe_dense(slots, slots, sk, sl, q.int(), 2, 2, 1)
     assert all(v == 0 for v in kernels.LAUNCHES.values())
     assert kernels.probe_chunk(slots, sk, sl, q, 4, 3, 2, False).tolist() == [0] * 5
-    assert kernels.LAUNCHES["probe_chunk"] == 1
+    assert kernels.probe_chunk(slots, sk, sl, q, 8, 3, 2, True).tolist() == [0] * 5
+    assert kernels.LAUNCHES["probe_chunk"] == 2
 
 
 def test_wrapper_rejects_bad_input(dev):
@@ -92,9 +97,42 @@ def test_wrapper_rejects_bad_input(dev):
         kernels.top2(torch.ones((3, 2), dtype=torch.int32, device=dev).t())
     with pytest.raises(ValueError):
         kernels.top2(torch.ones((2, 3), dtype=torch.int32))  # on the CPU
-    assert kernels.LAUNCHES["top2"] == 0
-    score.top2_from_labels(torch.ones((2, 3), dtype=torch.int32, device=dev))
-    assert kernels.LAUNCHES["top2"] == 1
+    lab = torch.ones((2, 3), dtype=torch.int32, device=dev)
+    for n_targets in (0, -3, (1 << 31) - 1):
+        with pytest.raises(ValueError):
+            kernels.top2(lab, n_targets)
+    with pytest.raises(ValueError):  # the small form needs T
+        kernels.top2(lab, form="small")
+    with pytest.raises(ValueError):  # past the hash form's tile
+        kernels.top2(torch.ones((2, kernels.K3_TILE_W + 1), dtype=torch.int32,
+                                device=dev), 70_000, form="hash")
+    with pytest.raises(ValueError):
+        kernels.top2(lab, 4, form="sort")
+    assert all(v == 0 for v in kernels.LAUNCHES.values())
+    score.top2_from_labels(lab)
+    assert kernels.LAUNCHES["top2"] == kernels.LAUNCHES["top2 hash"] == 1
+
+
+@pytest.mark.parametrize("n_targets, w, form", [
+    (16, 224, "small"), (4095, 224, "small"), (4096, 224, "hash"),
+    (None, 672, "hash"), (65535, 4096, "hash"), (65535, 4097, "block"),
+    (None, 100_000, "block"), (16, 100_000, "small"),
+])
+def test_top2_takes_its_form_on_the_card(dev, n_targets, w, form):
+    """K3 launches the form top2_form names for the shape (the main path's
+    16 targets: small; 65,535 targets: hash; past the tile: block), and
+    every form gives its twin's scalars."""
+    top = 1 << 17 if n_targets is None else n_targets
+    rng = np.random.default_rng(w)
+    lab = torch.from_numpy(rng.integers(0, top + 1, size=(37, w)).astype(
+        np.int32)).to(dev)
+    lab[::3] = lab[::3, :1]  # rows of one label
+    kernels.reset_launches()
+    got = score.top2_from_labels(lab, n_targets)
+    assert kernels.LAUNCHES["top2"] == kernels.LAUNCHES[f"top2 {form}"] == 1
+    want = score.top2_from_labels_plain(lab)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
 
 
 def test_cycled_uploads_under_concurrent_calls(dev, tmp_path, monkeypatch):

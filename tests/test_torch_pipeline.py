@@ -1,6 +1,7 @@
 """Device step of the PyTorch port against the JAX package, on the CPU:
 the plain-PyTorch twins of kernels K1 (window_canonicals, also at the edges
-of the kernel's rolled runs, and the rolling recurrence itself), K3 (top2)
+of the kernel's rolled runs, and the rolling recurrence itself), K3 (top2,
+also at the edges of its forms, given the largest label T where known)
 and the whole classify_batch in its three scoring forms, held to exact
 integer equality."""
 
@@ -12,7 +13,8 @@ import torch
 from jn_cuclark_tpu.ops import device_pipeline as jdp
 from jn_cuclark_tpu.ops import radix_table as jrt
 from jn_cuclark_tpu.ops import score as jscore
-from jn_cuclark_tpu_torch.ops import bits, device_pipeline, radix_table, score
+from jn_cuclark_tpu_torch.ops import (bits, device_pipeline, kernels,
+                                      radix_table, score)
 from jn_cuclark_tpu_torch.utils import native
 
 EMPTY = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -134,23 +136,62 @@ def test_rolled_revcomp_equals_revcomp(k):
 
 TOP2_CASES = {
     # ties on count resolve to the lowest label, for best and second best
-    "ties": np.array([[3, 3, 5, 5, 7, 0], [2, 2, 9, 9, 9, 1],
-                      [4, 0, 4, 6, 6, 6]], np.int32),
-    "empty_rows": np.zeros((3, 7), np.int32),
-    "one_window": np.array([[0], [5], [65535]], np.int32),
+    "ties": (np.array([[3, 3, 5, 5, 7, 0], [2, 2, 9, 9, 9, 1],
+                       [4, 0, 4, 6, 6, 6]], np.int32), 9),
+    "empty_rows": (np.zeros((3, 7), np.int32), 1),
+    "one_window": (np.array([[0], [5], [65535]], np.int32), 65535),
 }
 
 
-@pytest.mark.parametrize("case", ["ties", "empty_rows", "one_window", "random"])
-def test_top2_plain_equals_jax(case):
+def _top2_case(case):
+    """(lab [R, W] int32, T: the largest label it may hold, or None) from a
+    numpy seed; beside the fixed cases, the edges of K3's forms
+    (kernels.top2_forms)."""
+    if case in TOP2_CASES:
+        return TOP2_CASES[case]
+    rng = np.random.default_rng(TOP2_CASE_NAMES.index(case))
+    tile = kernels.K3_TILE_W
+    top = (1 << 31) - 1
     if case == "random":
-        rng = np.random.default_rng(7)
-        lab = rng.integers(0, 6, size=(64, 300)).astype(np.int32)
+        lab = rng.integers(0, 6, size=(64, 300))
         lab[::5] = 0
-    else:
-        lab = TOP2_CASES[case]
+        return lab.astype(np.int32), 5
+    if case in ("W=tile", "W=tile+1"):
+        w = tile + (case == "W=tile+1")
+        return rng.integers(0, 300, size=(3, w)).astype(np.int32), 299
+    if case == "224 distinct":  # the hash form's fullest table
+        return np.stack([rng.permutation(65535)[:224] + 1
+                         for _ in range(4)]).astype(np.int32), 65535
+    if case == "one label":  # the most same-address atomics
+        return np.full((4, 224), 9, np.int32), 9
+    if case == "labels equal to T":
+        lab = rng.choice([0, 16, 16, 2], size=(8, 224))
+        lab[0] = 16
+        return lab.astype(np.int32), 16
+    if case == "17-bit labels":
+        return rng.integers(0, 1 << 17, size=(8, 400)).astype(np.int32), None
+    if case == "near 2^31-1":
+        lab = rng.integers(top - 3000, top + 1, size=(8, 224))
+        lab[0, :30] = top
+        lab[1, ::2] = 0
+        return lab.astype(np.int32), None
+    if case == "ragged R":  # no multiple of the 8 reads a block
+        return rng.integers(0, 17, size=(13, 224)).astype(np.int32), 16
+    # "W=672": the cycled-labels width, 3 cycles of 224 windows
+    return rng.integers(0, 5001, size=(8, 672)).astype(np.int32), 5000
+
+
+TOP2_CASE_NAMES = ["ties", "empty_rows", "one_window", "random", "W=tile",
+                   "W=tile+1", "224 distinct", "one label",
+                   "labels equal to T", "17-bit labels", "near 2^31-1",
+                   "ragged R", "W=672"]
+
+
+@pytest.mark.parametrize("case", TOP2_CASE_NAMES)
+def test_top2_plain_equals_jax(case):
+    lab, T = _top2_case(case)
     want = [np.asarray(a) for a in jscore.top2_from_labels(jnp.asarray(lab))]
-    got = score.top2_from_labels(torch.from_numpy(lab))
+    got = score.top2_from_labels(torch.from_numpy(lab), n_targets=T)
     for g, w in zip(got, want):
         assert g.dtype == torch.int32
         assert np.array_equal(g.numpy(), w)

@@ -2,8 +2,8 @@
 score_from_labels in its three forms (K3 top-2, K4 sorted u16 grid + top-2,
 K5 dense counts + top-2, here their plain twins), and the dense-count twins
 counts_from_hits_plain / read_results_plain, all held to exact equality,
-on shapes at both sides of K5's and K4's form edges; and the forms' and
-K1's launch plan's rules."""
+on shapes at both sides of K5's and K4's form edges; and the forms' (K3's,
+K4's, K5's) and K1's launch plan's rules."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -93,6 +93,49 @@ def test_counts_from_hits_and_read_results_equal_jax(case):
 def test_counts_form_by_shape(t1, w, form):
     """K5's form follows the shape alone, at both sides of each edge."""
     assert kernels.counts_form(t1, w) == form
+
+
+@pytest.mark.parametrize("n_targets, w, form", [
+    (1, 1, "small"), (16, 224, "small"), (4095, 100_000, "small"),
+    (4096, 224, "hash"), (65535, 4096, "hash"), (None, 0, "hash"),
+    (None, 672, "hash"), (None, 4096, "hash"), (4096, 4097, "block"),
+    (None, 4097, "block"), (65535, 100_000, "block"),
+])
+def test_top2_form_by_shape(n_targets, w, form):
+    """K3's form follows the shape alone, at both sides of each edge; the
+    block form takes every shape, the small form needs T."""
+    assert kernels.top2_form(n_targets, w) == form
+    forms = kernels.top2_forms(n_targets, w)
+    assert forms[0] == form and forms[-1] == "block"
+    assert ("small" in forms) == (n_targets is not None
+                                  and n_targets + 1 <= kernels.K5_SMALL_T1)
+    assert ("hash" in forms) == (w <= kernels.K3_TILE_W)
+
+
+@pytest.mark.parametrize("T", [1, 16, 4095, 4096, 65535])
+def test_top2_scores_do_not_depend_on_n_targets(T):
+    """score_from_labels(extended=False) gives the JAX package's five
+    arrays whatever form n_targets picks for K3."""
+    rng = np.random.default_rng(T)
+    lab = rng.integers(0, min(T, 40) + 1, size=(21, 224)).astype(np.int32)
+    lab[::4] = lab[::4, :1]
+    want = [np.asarray(a) for a in jdp.score_from_labels(
+        jnp.asarray(lab), n_targets=T, extended=False)]
+    got = device_pipeline.score_from_labels(
+        torch.from_numpy(lab), n_targets=T, extended=False)
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and g.shape == w.shape
+        assert np.array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("n_targets", [0, -1, (1 << 31) - 1])
+def test_top2_rejects_a_bad_target_count(n_targets):
+    lab = torch.zeros((2, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="bad target count"):
+        score.top2_from_labels(lab, n_targets)
+    with pytest.raises(ValueError, match="bad target count"):
+        kernels.top2_forms(n_targets, 3)
 
 
 def _sorted_case(name):

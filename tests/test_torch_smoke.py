@@ -23,7 +23,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_phases_on_cpu(tmp_path, monkeypatch):
     dev = torch.device("cpu")
     assert chip_smoke.check_kernels(dev, big_tables=False) == (
-        21 + 10 + 6 + 12 + 12 + 13 + 29 + 9)
+        21 + 10 + 45 + 12 + 12 + 13 + 29 + 9)
     assert chip_smoke.check_goldens(dev, str(tmp_path)) == 6
     assert chip_smoke.check_golden_dbs(dev, str(tmp_path)) == 3
     dense = chip_smoke.check_dense_targets(dev, str(tmp_path), n_reads=40)
@@ -80,7 +80,15 @@ def test_phases_on_cpu(tmp_path, monkeypatch):
     assert 0 < shape["partition_entries"] < 1 << 20
     assert set(timing) == set(chip_smoke.KERNELS) | {
         "counts_top2 T=65535", "probe_chunk chunk 1", "probe_chunk chunk 2",
-        "probe_chunk chunk 3", "aggregate padded"}
+        "probe_chunk chunk 3", "aggregate padded", "top2 hash",
+        "top2 T=65535", "top2 block T=65535"}
+    # K3's forms by shape: the main path's 3 targets take the small form
+    assert {n: f["form"] for n, f in shape["top2_forms"].items()} == {
+        "top2": "small", "top2 hash": "hash", "top2 T=65535": "hash",
+        "top2 block T=65535": "block", "top2 past the tile": "block"}
+    # the miss mask reads q (8 B) and the probe's labels, writes labels
+    assert shape["mask_glue"]["bytes"] == 16 * shape["queries"]
+    assert shape["mask_glue"]["bound_ms"] > 0
     assert timing["aggregate"]["plan"]["levels"] == 1
     assert timing["aggregate padded"]["plan"]["single"] == 1
     assert sum(shape["probe_reads"][f"probe_chunk {i}"]["queries"]
@@ -91,7 +99,8 @@ def test_phases_on_cpu(tmp_path, monkeypatch):
                for t in timing.values())
     assert {n for n, t in timing.items() if t["library_ms"] is not None} == {
         "sort_top2", "counts_top2", "counts_top2 T=65535", "aggregate",
-        "aggregate padded"}
+        "aggregate padded", "top2", "top2 hash", "top2 T=65535",
+        "top2 block T=65535"}
 
 
 def test_kshift_case_plans_kshift_1():
