@@ -89,11 +89,26 @@ raises and exits non-zero before the result lines:
              K1's run plan, K4's form, and the SASS instruction counts of
              K1, K3's three forms and K4 (cuobjdump)
 
+  6 tools    after phase 5, on phase 4's DB and Classifier: `verify --db`
+             (READY, its toy batch through K1-K3 on the card); bench.py
+             config 3 (20,000 reads of 150 bp, 30% random, classified, then
+             `abundance -D --krona --mpa` on the toy NCBI taxonomy of taxids
+             1000-1015) and config 4 (8 samples of 8,000 reads of 150 bp,
+             20% random, classify_files(jobs=4), `abundance -D` each,
+             `merge`, `report`): each taxid's count equal to the reads
+             drawn from its genome and to the CSV's tally, the merged counts
+             the samples' sums; abundance, merge and report on
+             tests/golden/fixtures byte-equal to the nine goldens.  Prints
+             config 3's pipeline seconds and config 4's batch seconds;
+             records the device-busy share of a traced config-3 pipeline
+             and the host seconds of Classifier's label-range check on
+             this DB (the .lb labels, the .idx cache's table)
+
 The last two lines are the kernels' JSON record and the run's contract
 line {"ok": true, "device": {...}}.  With no CUDA device it exits 1 and
 prints neither.  It takes no arguments; a rehearsal at a smaller scale
 calls the phase functions (check_kernels, run_scale, run_out_of_core,
-run_refseq, time_kernels) with smaller sizes, as tests/test_torch_smoke.py
+run_refseq, time_kernels, run_tools) with smaller sizes, as tests/test_torch_smoke.py
 does on the CPU.
 """
 
@@ -102,6 +117,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gzip
+import io
 import json
 import os
 import re
@@ -115,9 +131,13 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from jn_cuclark_tpu_torch import params
+from jn_cuclark_tpu_torch import cli, database, params
 from jn_cuclark_tpu_torch.db import builder, device_build
-from jn_cuclark_tpu_torch.engine import BatchPlan, Classifier
+from jn_cuclark_tpu_torch.engine import (
+    BatchPlan,
+    Classifier,
+    _check_label_range,
+)
 from jn_cuclark_tpu_torch.io import dbformat
 from jn_cuclark_tpu_torch.io.targets import parse_targets
 from jn_cuclark_tpu_torch.ops import (
@@ -1836,6 +1856,278 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
 
 
 # ------------------------------------------------------------------ main
+# --------------------------------------------------------------- phase 6
+GOLD_FIX = os.path.join(GOLD, "fixtures")
+TOOL_GOLDENS = (
+    # (CLI arguments, files compared: (written, golden))
+    (["abundance", "-D", "{fix}/db", "-F", "{fix}/res1.csv", "-o", "a.csv"],
+     [("a.csv", "abundance_default.csv")]),
+    (["abundance", "-D", "{fix}/db", "-F", "{fix}/res1.csv", "{fix}/res2.csv",
+      "-o", "b.csv", "--krona", "--mpa"],
+     [("b.csv", "abundance_two_files.csv"), ("results.krn", "golden.krn"),
+      ("results.mpa", "golden.mpa")]),
+    (["abundance", "-D", "{fix}/db", "-F", "{fix}/res1.csv", "--hc", "-o",
+      "c.csv"], [("c.csv", "abundance_hc.csv")]),
+    (["abundance", "-F", "{fix}/res1.csv", "-o", "d.csv"],
+     [("d.csv", "abundance_notax.csv")]),
+    (["abundance", "-D", "{fix}/db", "-F", "{fix}/res1.csv", "-a", "20",
+      "-o", "e.csv"], [("e.csv", "abundance_minab.csv")]),
+    (["merge", "{gold}/abundance_default.csv",
+      "{gold}/abundance_two_files.csv", "-o", "merged.csv"],
+     [("merged.csv", "merged.csv")]),
+    (["report", "{gold}/merged.csv", "-o", "report.txt"],
+     [("report.txt", "report.txt")]),
+)
+
+
+def write_toy_taxonomy(td: str, n_species: int):
+    """NCBI-format nodes.dmp/names.dmp covering taxids 1000..1000+n-1 (a
+    copy of bench.py's config-3 taxonomy): species i in genus 200 + i // 4,
+    one family, order, class and phylum, in Bacteria."""
+    tax = os.path.join(td, "taxonomy")
+    os.makedirs(tax, exist_ok=True)
+    nodes = [
+        (1, 1, "no rank"), (2, 1, "superkingdom"), (100, 2, "phylum"),
+        (110, 100, "class"), (120, 110, "order"), (130, 120, "family"),
+    ]
+    names = [
+        (1, "root"), (2, "Bacteria"), (100, "Synthphyla"),
+        (110, "Synthclassia"), (120, "Synthorder"), (130, "Synthaceae"),
+    ]
+    for i in range(n_species):
+        genus = 200 + i // 4
+        nodes.append((genus, 130, "genus"))
+        names.append((genus, f"Synthgenus{i // 4}"))
+    for i in range(n_species):
+        nodes.append((1000 + i, 200 + i // 4, "species"))
+        names.append((1000 + i, f"Synthspecies {i}"))
+    with open(os.path.join(tax, "nodes.dmp"), "w") as f:
+        for tid, parent, rank in dict.fromkeys(nodes):
+            f.write(f"{tid}\t|\t{parent}\t|\t{rank}\t|\tXX\t|\n")
+    with open(os.path.join(tax, "names.dmp"), "w") as f:
+        for tid, nm in dict.fromkeys(names):
+            f.write(f"{tid}\t|\t{nm}\t|\t\t|\tscientific name\t|\n")
+
+
+def tools_layout(td: str, scale_dir: str, n_genomes: int, prof: Profile):
+    """A reference-layout database directory over phase 4's DB: Custom/
+    links the genomes, taxonomy/ holds the toy tree, the other dumps
+    (empty) and an accession map, and config.json names phase 4's targets
+    file and DB directory."""
+    os.makedirs(os.path.join(td, "Custom"))
+    for i in range(n_genomes):
+        os.symlink(os.path.join(scale_dir, f"g{i}.fa"),
+                   os.path.join(td, "Custom", f"g{i}.fa"))
+    write_toy_taxonomy(td, n_genomes)
+    tax = os.path.join(td, "taxonomy")
+    for fn in database.TAXONOMY_FILES:
+        open(os.path.join(tax, fn), "a").close()
+    with open(os.path.join(tax, "nucl_accss"), "w") as f:
+        f.writelines(f"g{i}\tg{i}.1\t{1000 + i}\t{i}\n"
+                     for i in range(n_genomes))
+    database.DBConfig(
+        db_dir=td, targets=os.path.join(scale_dir, "targets.txt"),
+        subdb=scale_dir, rank=0, profile_name=prof.name, k=prof.default_k,
+        gap=prof.default_gap, min_count_target=0, htsize=prof.htsize,
+        light=prof.light).save()
+
+
+def _cli(*argv) -> tuple[int, str]:
+    """(exit code, stdout) of one command of the port's CLI."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in argv])
+    return rc, buf.getvalue()
+
+
+def _abundance_counts(path: str) -> dict:
+    """{TaxID: Count} of an abundance CSV with a Lineage column (the
+    UNKNOWN row under "UNKNOWN")."""
+    with open(path) as f:
+        rows = [line.split(",") for line in f.read().splitlines()[1:]]
+    return {r[1]: int(r[3]) for r in rows}
+
+
+def _tally(csv_path: str) -> dict:
+    """{Assignment: reads} over a classification CSV's admissible rows
+    (Confidence >= 0.5, Gamma >= 0), the rows abundance counts."""
+    out = {}
+    with open(csv_path) as f:
+        for line in f.read().splitlines()[1:]:
+            _, gamma, lbl, _, conf = line.split(",")
+            if lbl != "NA" and float(conf) >= 0.5 and float(gamma) >= 0:
+                out[lbl] = out.get(lbl, 0) + 1
+    return out
+
+
+def _busy_share(fn, dev) -> float:
+    """Device-busy share of one call of fn: the device time of the kernels
+    and copies in torch.profiler's trace over the call's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t
+    busy_us = sum(getattr(e, "self_device_time_total", 0)
+                  for e in prof.key_averages())
+    return busy_us / 1e6 / wall
+
+
+def _expected_counts(expect) -> dict:
+    out = {}
+    for e in expect:
+        if e != b"NA":
+            out[e.decode()] = out.get(e.decode(), 0) + 1
+    return out
+
+
+def run_tools(dev, tmp: str, clf: Classifier, scale_dir: str, n_genomes: int,
+              prof: Profile, launches: dict, n_c3: int = 20_000,
+              c4_samples: int = 8, n_c4: int = 8_000, seed: int = 11):
+    """Phase 6: the tools on phase 4's DB and Classifier.  `verify --db`;
+    bench.py config 3 (n_c3 reads of 150 bp, 30% random, classified, then
+    `abundance -D --krona --mpa`); bench.py config 4 (c4_samples samples of
+    n_c4 reads of 150 bp, 20% random, classify_files(jobs=4), an
+    `abundance -D` each, `merge`, `report`); abundance, merge and report
+    on tests/golden/fixtures byte-equal to the nine goldens.  Every count
+    exact.  Returns metrics."""
+    m = {}
+    td = os.path.join(tmp, "tools")
+    tools_layout(td, scale_dir, n_genomes, prof)
+    genomes = []
+    for i in range(n_genomes):
+        with open(os.path.join(scale_dir, f"g{i}.fa"), "rb") as f:
+            genomes.append(np.frombuffer(f.read().split(b"\n")[1], np.uint8))
+
+    # verify on the command's default device (cuda) on the card
+    device = [] if dev.type == "cuda" else ["--device", dev.type]
+    (rc, out), m["verify_s"] = _path(
+        launches, "verify", lambda: _cli("verify", "--db", td, *device))
+    lines = out.splitlines()
+    if rc != 0 or lines[-1] != "STATUS: READY" or not any(
+            line.startswith("  [OK]   device pipeline (K1, K2, K3 on "
+                            f"{dev.type}") for line in lines) or not any(
+            line.startswith("  [OK]   database files:") for line in lines):
+        raise AssertionError(f"verify: rc {rc}\n{out}")
+    m["verify"] = [line.strip() for line in lines[1:]]
+
+    # bench.py config 3: classify, then abundance with Krona and MPA
+    fa, _, expect = make_reads(np.random.default_rng(seed), genomes, n_c3,
+                               read_len=150, junk_p=0.3)
+    reads, res = os.path.join(td, "c3_reads.fa"), os.path.join(td, "c3_res")
+    with open(reads, "wb") as f:
+        f.write(fa)
+    stats, m["c3_classify_s"] = _path(launches, "tools config 3",
+                                      lambda: clf.classify_file(reads, res))
+    t = time.perf_counter()
+    with contextlib.chdir(td):  # results.krn and results.mpa go here
+        rc, _ = _cli("abundance", "-D", td, "-F", res + ".csv", "--krona",
+                     "--mpa", "-o", "c3_abundance.csv")
+    m["c3_abundance_s"] = time.perf_counter() - t
+    m["c3_pipeline_s"] = m["c3_classify_s"] + m["c3_abundance_s"]
+    check_csv(res + ".csv", expect)
+    counts = _abundance_counts(os.path.join(td, "c3_abundance.csv"))
+    want = _expected_counts(expect)
+    if rc or stats["reads"] != n_c3 or {
+            k: v for k, v in counts.items() if k != "UNKNOWN"} != want:
+        raise AssertionError(f"config 3: abundance {counts} != reads drawn "
+                             f"{want}")
+    if _tally(res + ".csv") != want or counts["UNKNOWN"] != n_c3 - sum(
+            want.values()):
+        raise AssertionError("config 3: abundance != the CSV's tally")
+    for fn in ("results.krn", "results.mpa"):
+        if os.path.getsize(os.path.join(td, fn)) == 0:
+            raise AssertionError(f"config 3: {fn} is empty")
+    m["c3_reads"], m["c3_taxa"] = n_c3, len(want)
+
+    def pipeline():
+        clf.classify_file(reads, res + "_traced")
+        with contextlib.chdir(td):
+            _cli("abundance", "-D", td, "-F", res + "_traced.csv", "-o",
+                 "c3_traced_abundance.csv")
+
+    if dev.type == "cuda":  # a traced run of its own
+        m["c3_device_busy_share"] = _busy_share(pipeline, dev)
+
+    # bench.py config 4: samples classified 4 at a time, an abundance
+    # each, merged, reported
+    items, wants = [], []
+    for s in range(c4_samples):
+        fa, _, expect = make_reads(np.random.default_rng(seed + 1 + s),
+                                   genomes, n_c4, read_len=150, junk_p=0.2)
+        path = os.path.join(td, f"c4_s{s}.fa")
+        with open(path, "wb") as f:
+            f.write(fa)
+        items.append((path, None, os.path.join(td, f"c4_res{s}")))
+        wants.append((expect, _expected_counts(expect)))
+    t = time.perf_counter()
+    _, m["c4_classify_s"] = _path(launches, "tools config 4",
+                                  lambda: clf.classify_files(items, jobs=4))
+    abs_ = []
+    for _, _, res in items:
+        abs_.append(res + "_abundance.csv")
+        if _cli("abundance", "-D", td, "-F", res + ".csv", "-o",
+                abs_[-1])[0]:
+            raise AssertionError(f"config 4: abundance of {res} failed")
+    merged = os.path.join(td, "c4_merged.csv")
+    if _cli("merge", *abs_, "-o", merged)[0]:
+        raise AssertionError("config 4: merge failed")
+    m["c4_batch_s"] = time.perf_counter() - t
+    report = os.path.join(td, "c4_report.txt")
+    if _cli("report", merged, "-o", report)[0]:
+        raise AssertionError("config 4: report failed")
+    total = {}
+    for (_, _, res), ab, (expect, want) in zip(items, abs_, wants):
+        check_csv(res + ".csv", expect)
+        counts = _abundance_counts(ab)
+        if {k: v for k, v in counts.items() if k != "UNKNOWN"} != want:
+            raise AssertionError(f"config 4: {ab} != reads drawn")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    if _abundance_counts(merged) != total:
+        raise AssertionError("config 4: merged counts != sums over samples")
+    with open(report) as f:
+        rep = f.read().splitlines()
+    if rep[0] != "RESULT" or len(rep) != 2 + n_genomes:
+        raise AssertionError(f"config 4: report {rep[:3]}")
+    m["c4_samples"], m["c4_reads"] = c4_samples, c4_samples * n_c4
+
+    # the label-range check's host seconds on this DB (it runs in every
+    # Classifier load): a min/max over the .lb labels, and the label field
+    # of the table in the .idx cache (the check where labels are absent)
+    stem = os.path.join(scale_dir, prof.db_stem(prof.default_k, n_genomes, 0,
+                                                prof.default_gap))
+    _, labels = dbformat.read_db(stem, prof, prof.default_k)
+    t = time.perf_counter()
+    _check_label_range(labels, None, n_genomes)
+    m["label_check_lb_s"] = time.perf_counter() - t
+    table = radix_table.load_cache(stem + ".idx.npz")
+    t = time.perf_counter()
+    _check_label_range((), table, n_genomes)
+    m["label_check_cached_table_s"] = time.perf_counter() - t
+    m["label_check_table_bytes"] = table.slots.nbytes
+    del labels, table
+
+    # the byte goldens through the CLI (the native scan built here)
+    gd = os.path.join(td, "goldens")
+    os.makedirs(gd)
+    n = 0
+    with contextlib.chdir(gd):
+        for argv, files in TOOL_GOLDENS:
+            rc, _ = _cli(*(a.format(fix=GOLD_FIX, gold=GOLD) for a in argv))
+            for written, golden in files:
+                with open(written, "rb") as a, open(
+                        os.path.join(GOLD, golden), "rb") as b:
+                    if rc or a.read() != b.read():
+                        raise AssertionError(f"{golden}: not byte-equal")
+                n += 1
+    m["goldens_byte_equal"] = n
+    return m
+
+
 N_GENOMES = 16  # phase 4: bench.py config 2, 16 genomes x 3 Mbp
 
 
@@ -1909,7 +2201,6 @@ def main() -> int:
         os.makedirs(refseq_dir)
         metrics = run_refseq(dev, refseq_dir, launches)
         shutil.rmtree(refseq_dir)
-        check_launches(launches)
         _phase("4c refseq-shape", t, launches={
             name: n for name, n in launches.items() if name not in printed},
             **metrics)
@@ -1918,6 +2209,18 @@ def main() -> int:
         timing, shape = time_kernels(dev, clf, dense_clf, fa, lens, scale_dir,
                                      N_GENOMES)
         _phase("5 timing", t, shape=shape, **timing)
+
+        t = time.perf_counter()
+        printed = set(launches)
+        tools = run_tools(dev, tmp, clf, scale_dir, N_GENOMES, params.FULL,
+                          launches)
+        check_launches(launches)
+        print(f"tools: config 3 pipeline_seconds {tools['c3_pipeline_s']:.3f}"
+              f", config 4 batch_seconds {tools['c4_batch_s']:.3f}",
+              flush=True)
+        _phase("6 tools", t, launches={
+            name: n for name, n in launches.items() if name not in printed},
+            **tools)
 
     record = {"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
@@ -1967,6 +2270,9 @@ PATH_KERNELS = {
     "mesh dp x db": {"window_canonicals", "probe_chunk", *_SMALL},
     "mesh dp x db extended": {"window_canonicals", "probe_chunk",
                               "sort_top2"},
+    "verify": {"window_canonicals", "probe", *_SMALL},
+    "tools config 3": {"window_canonicals", "probe", *_SMALL},
+    "tools config 4": {"window_canonicals", "probe", *_SMALL},
 }
 
 

@@ -11,8 +11,10 @@ first use; the device step runs hand-written CUDA kernels
 the CPU.
 
 Ported so far: `classify` (single-end, paired-end, extended; the table
-resident, dense or cycled; over a mesh of devices) and `db build`
-(README's port section lists the slices).
+resident, dense or cycled; over a mesh of devices), the `db` workflows
+(set-targets, build, the taxonomy and genome downloads, clean), and the
+tools `abundance`, `merge`, `report` and `verify` (README's port section
+lists the slices).
 """
 
 from . import params  # noqa: F401

@@ -1,8 +1,15 @@
 """clark-torch — command line of the PyTorch/CUDA port.
 
 Subcommands (reference equivalents):
+    db set-targets   kent -d / set_targets.sh + make_metadata.sh
     db build         kent -d build step / cuCLARK DB construction
+    db update-taxonomy, download-taxonomy, download-genomes, clean
+                     updateTaxonomy.sh, scripts/download/*.sh, clean.sh
     classify         kent -c / classify_metagenome.sh / cuCLARK[-l]
+    abundance        kent -a / estimate_abundance.sh / getAbundance
+    merge            kent -m
+    report           kent -r
+    verify           kent --verify
 
 Classification (single-end, paired-end, --extended, list mode with
 --jobs) runs on one device, the table resident or streamed in
@@ -10,12 +17,11 @@ Classification (single-end, paired-end, --extended, list mode with
 the reads over N devices, `-d N --shard-db` splits the table's rows (which
 composes with --db-cycles), and `--dp M` with --shard-db does both on an
 M x N/M mesh.  `--device` picks cuda (the first N cards; N more than the
-machine has raises) or cpu (N CPU shards).  The other `db` workflows
-(set-targets, update-taxonomy, download-*, clean) and the other
-subcommands of `jn_cuclark_tpu.cli` (abundance, merge, report, verify,
-cluster) wait for ROADMAP A9-A10; the `db` ones are listed and raise.
+machine has raises) or cpu (N CPU shards).  abundance, merge and report
+run on the host; verify runs a toy batch through K1-K3 on `--device`.
+`cluster` (multi-host) waits for ROADMAP A9.
 
-Run `python -m jn_cuclark_tpu_torch.cli classify --help` for flags.
+Run `python -m jn_cuclark_tpu_torch.cli <cmd> --help` for flags.
 """
 
 from __future__ import annotations
@@ -249,10 +255,314 @@ def cmd_db_build(args):
     return 0
 
 
-def cmd_db_not_ported(args):
-    from .engine import _not_ported
+def cmd_db_set_targets(args):
+    from . import database
 
-    raise _not_ported(f"db {args.dbcmd}", "A10")
+    prof = _profile_from_args(args)
+    cfg = database.set_targets(args.db, rank=args.rank, profile=prof)
+    n = sum(1 for _ in open(cfg.targets))
+    print(f"Targets definition written: {cfg.targets} ({n} targets)")
+    print(f"Database sub-directory: {cfg.subdb}")
+    return 0
+
+
+def _taxonomy_files() -> list[str]:
+    from . import database
+
+    return database.TAXONOMY_FILES + ["nucl_accss"]
+
+
+def cmd_db_update_taxonomy(args):
+    """scripts/updateTaxonomy.sh equivalent, minus the wget: with --from,
+    install taxonomy data from an already-downloaded directory or
+    taxdump.tar.gz (extract *.dmp, concatenate nucl_gb + nucl_wgs
+    accession2taxid into nucl_accss, touch <db>/.taxondata); without
+    --from, print what to fetch and validate what is present.  The fetch
+    itself is `clark-torch db download-taxonomy` where egress exists."""
+    from . import download
+
+    tax = os.path.join(args.db, "taxonomy")
+    if args.src is not None:
+        try:
+            download.install_taxonomy(args.src, tax)
+        except download.DownloadError as e:
+            print(e)
+            return 1
+    else:
+        print(
+            "No --from given.  With network egress, run:"
+            "\n  clark-torch db download-taxonomy " + args.db +
+            "\nor fetch from ftp://ftp.ncbi.nih.gov/pub/taxonomy/:"
+            "\n  taxdump.tar.gz"
+            "\n  accession2taxid/nucl_gb.accession2taxid.gz"
+            "\n  accession2taxid/nucl_wgs.accession2taxid.gz"
+            "\nthen: clark-torch db update-taxonomy " + args.db
+            + " --from <download-dir>"
+        )
+    missing = [
+        f for f in _taxonomy_files() if not os.path.exists(os.path.join(tax, f))
+    ]
+    if missing:
+        print("\nCurrently missing: " + ", ".join(missing))
+        return 1
+    # the reference marks completion with <db>/.taxondata
+    # (updateTaxonomy.sh: `touch ../.taxondata`; checked by kent.cpp:178-265)
+    open(os.path.join(args.db, ".taxondata"), "a").close()
+    print("\nAll taxonomy files present.")
+    return 0
+
+
+def cmd_db_download_taxonomy(args):
+    """scripts/updateTaxonomy.sh + download/download_taxondata.sh: fetch
+    the NCBI taxonomy payload into <db>/taxonomy and install it."""
+    from . import download
+
+    try:
+        download.download_taxonomy(
+            os.path.join(args.db, "taxonomy"), base_url=args.base_url
+        )
+    except download.DownloadError as e:
+        print(e)
+        return 1
+    missing = [
+        f for f in _taxonomy_files()
+        if not os.path.exists(os.path.join(args.db, "taxonomy", f))
+    ]
+    if missing:
+        print("Missing after download: " + ", ".join(missing))
+        return 1
+    print("All taxonomy files present.")
+    return 0
+
+
+def cmd_db_download_genomes(args):
+    """The reference's three genome-download flows
+    (scripts/download/download_data{_newest,_release,}.sh), selected by
+    --flow: newest (assembly_summary latest Complete Genome, the default),
+    release (dated RefSeq release volumes split per sequence), archive
+    (legacy old_refseq tarballs / per-chromosome human)."""
+    from . import download
+
+    try:
+        if args.flow == "release":
+            base = args.base_url or download.NCBI_RELEASE_BASE
+            manifest = download.download_genomes_release(
+                args.dir, args.group, base_url=base, limit=args.limit
+            )
+        elif args.flow == "archive":
+            base = args.base_url or download.NCBI_GENOMES_BASE
+            manifest = download.download_genomes_archive(
+                args.dir, args.group, base_url=base
+            )
+        else:
+            base = args.base_url or download.NCBI_REFSEQ_BASE
+            manifest = download.download_genomes(
+                args.dir, args.group, base_url=base, limit=args.limit
+            )
+    except download.DownloadError as e:
+        print(f"Error: {e}")
+        return 1
+    n = sum(1 for ln in open(manifest) if not ln.startswith("#"))
+    print(f"Manifest: {manifest} ({n} sequences)")
+    return 0
+
+
+def cmd_db_clean(args):
+    """Reset DB products: targets.txt, custom_* sub-DBs, metadata dotfiles
+    (scripts/clean.sh --reset semantics; Custom/ and taxonomy/ are kept)."""
+    import glob
+    import shutil
+
+    db = args.db
+    if not os.path.isdir(db):
+        print(f"database directory not found: {db}", file=sys.stderr)
+        return 1
+    victims = (
+        [os.path.join(db, "targets.txt"), os.path.join(db, "files_excluded.txt"),
+         os.path.join(db, "config.json")]
+        + glob.glob(os.path.join(db, ".custom*"))
+        + glob.glob(os.path.join(db, "custom_*"))
+    )
+    victims = [v for v in victims if os.path.exists(v)]
+    if not victims:
+        print("nothing to clean")
+        return 0
+    if not args.yes:
+        print("Will remove:")
+        for v in victims:
+            print(f"  {v}")
+        ans = input("Are you sure you want to reset the database? (yes/no) ")
+        if ans.strip().lower() not in ("y", "yes"):
+            print("Aborting database reset.")
+            return 1
+    for v in victims:
+        if os.path.isdir(v):
+            shutil.rmtree(v)
+        else:
+            os.remove(v)
+    print("Database reset complete.")
+    return 0
+
+
+def cmd_abundance(args):
+    from . import abundance
+
+    res = abundance.estimate(
+        args.files,
+        db_dir=args.db,
+        min_confidence=args.min_confidence,
+        min_gamma=args.min_gamma,
+        min_abundance=args.min_abundance,
+        high_confidence=args.highconfidence,
+        krona_path="results.krn" if args.krona else None,
+        mpa_path="results.mpa" if args.mpa else None,
+    )
+    out = sys.stdout
+    if args.output:
+        out = open(args.output, "w")
+    out.write(res.text())
+    if args.output:
+        out.close()
+        print(f"Abundance written to {args.output}", file=sys.stderr)
+    return 0
+
+
+def cmd_merge(args):
+    from . import abundance
+
+    stats = abundance.merge(args.files, args.output)
+    print(
+        f"Merged {stats['files']} abundance files ({stats['total']} total "
+        f"reads) -> {stats['output']}"
+    )
+    return 0
+
+
+def cmd_report(args):
+    from . import abundance
+
+    stats = abundance.report(args.file, args.output)
+    print(f"Report written to {stats['output']}")
+    return 0
+
+
+def cmd_verify(args):
+    """Installation + database health check (kent --verify)."""
+    ok = True
+
+    def check(name, fn):
+        nonlocal ok
+        try:
+            detail = fn()
+            print(f"  [OK]   {name}" + (f" ({detail})" if detail else ""))
+        except Exception as e:  # noqa: BLE001
+            print(f"  [FAIL] {name}: {e}")
+            ok = False
+
+    print("clark-torch installation check:")
+    check("python package",
+          lambda: __import__("jn_cuclark_tpu_torch").__version__)
+    devices = _cuda_devices()
+    if devices:
+        print(f"  [OK]   cuda devices ({devices})")
+    else:
+        print("  [WARN] cuda devices: none (torch.cuda.is_available() is "
+              "false)")
+    # the port has no numpy fallback: a runtime that does not build fails
+    check("native runtime (clark_native)", _check_native)
+    check("device pipeline", lambda: _check_pipeline(args.device))
+    if args.db:
+        from . import database
+
+        problems = database.check_layout(args.db)
+        for p in problems:
+            print(f"  [FAIL] db layout: {p}")
+        ok = ok and not problems
+        if not problems:
+            print(f"  [OK]   db layout: {args.db}")
+        try:
+            cfg = database.DBConfig.load(args.db)
+            stem = os.path.join(
+                cfg.subdb,
+                cfg.profile.db_stem(cfg.k, _count_targets(cfg),
+                                    cfg.min_count_target, cfg.gap),
+            )
+            from .io import dbformat
+
+            if dbformat.db_exists(stem):
+                print(f"  [OK]   database files: {stem}.(sz|ky|lb)")
+            else:
+                print(f"  [WARN] database not built yet (expected {stem}.*)")
+        except FileNotFoundError:
+            print(f"  [WARN] no config.json in {args.db} (run db set-targets)")
+    print("STATUS: " + ("READY" if ok else "INCOMPLETE"))
+    return 0 if ok else 1
+
+
+def _cuda_devices() -> str:
+    """The CUDA devices with their names and compute capabilities."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return ""
+    out = []
+    for i in range(torch.cuda.device_count()):
+        major, minor = torch.cuda.get_device_capability(i)
+        out.append(f"cuda:{i} {torch.cuda.get_device_name(i)} "
+                   f"sm_{major}{minor}")
+    return ", ".join(out)
+
+
+def _check_native():
+    from .utils import native
+
+    native._load()
+    return None
+
+
+def toy_step(device):
+    """A single classification step on a toy input: 4,096 random keys of 16
+    targets in a radix table, 64 random reads of 100 bp packed at stride
+    128, k = 27, through K1, K2 and K3 (`device_pipeline.classify_batch`)
+    on `device`; returns (total, ibest, best, sbest).  The inputs are those
+    of `__graft_entry__.entry`, made from the same seeds."""
+    import numpy as np
+    import torch
+
+    from .engine import _resolve_device
+    from .io.fasta import parse_reads
+    from .ops import device_pipeline, pack, radix_table
+
+    dev = _resolve_device(device)
+    n_keys, n_targets, n_reads, stride, k = 4096, 16, 64, 128, 27
+    rng = np.random.default_rng(0)
+    keys = np.unique(
+        rng.integers(1, 1 << 53, size=2 * n_keys, dtype=np.uint64))[:n_keys]
+    labels1 = rng.integers(1, n_targets + 1, size=n_keys).astype(np.int32)
+    table = radix_table.to_device(radix_table.build(keys, labels1), dev)
+    rng = np.random.default_rng(1)
+    fa = "".join(
+        f">r{i}\n{''.join(rng.choice(list('ACGT'), size=100))}\n"
+        for i in range(n_reads)
+    ).encode()
+    words, vwords = pack.pack_batch(parse_reads(fa), 0, n_reads, stride)
+    words, vwords = (torch.from_numpy(w.view(np.int64)).to(dev)
+                     for w in (words, vwords))
+    return device_pipeline.classify_batch(
+        table, words, vwords, k=k, n_targets=n_targets)[:4]
+
+
+def _check_pipeline(device):
+    total, ibest, best, sbest = toy_step(device)
+    if total.shape != (64,) or int(total.min()) < 0:
+        raise RuntimeError(f"toy step gave totals of shape {total.shape}")
+    return f"K1, K2, K3 on {total.device}"
+
+
+def _count_targets(cfg):
+    from .io.targets import parse_targets
+
+    return parse_targets(cfg.targets).n_targets
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -260,7 +570,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="clark-torch",
         description="CLARK metagenomic classifier on PyTorch/CUDA",
     )
-    from . import __version__
+    from . import __version__, database
 
     p.add_argument("--version", action="version",
                    version=f"clark-torch {__version__}")
@@ -281,6 +591,15 @@ def build_parser() -> argparse.ArgumentParser:
 
     pd = sub.add_parser("db", help="database workflows")
     dsub = pd.add_subparsers(dest="dbcmd", required=True)
+    pst = dsub.add_parser("set-targets",
+                          help="build targets.txt from Custom/ + taxonomy/")
+    pst.add_argument("db", help="database directory")
+    pst.add_argument("--rank", default="species",
+                     choices=list(database.RANK_NAMES),
+                     help="taxonomy rank for target labels")
+    add_profile_flags(pst)
+    pst.set_defaults(fn=cmd_db_set_targets)
+
     pb = dsub.add_parser("build", help="build the discriminative k-mer database")
     pb.add_argument("db", help="database directory (with config.json)")
     add_profile_flags(pb)
@@ -293,11 +612,60 @@ def build_parser() -> argparse.ArgumentParser:
                     "or host (the native C++ aggregate); --tsk builds and "
                     "spectrum inputs always aggregate on the host")
     pb.set_defaults(fn=cmd_db_build)
-    for name in ("set-targets", "update-taxonomy", "download-taxonomy",
-                 "download-genomes", "clean"):
-        pn = dsub.add_parser(name, help="not ported yet (ROADMAP A10)")
-        pn.add_argument("rest", nargs="*", help=argparse.SUPPRESS)
-        pn.set_defaults(fn=cmd_db_not_ported)
+
+    put = dsub.add_parser(
+        "update-taxonomy",
+        help="install/validate NCBI taxonomy data from a local download "
+        "(scripts/updateTaxonomy.sh equivalent; the fetch itself is manual "
+        "in this zero-egress environment)",
+    )
+    put.add_argument("db", help="database directory")
+    put.add_argument(
+        "--from", dest="src", default=None, metavar="DIR_OR_TGZ",
+        help="directory (or taxdump.tar.gz) holding the downloaded "
+        "taxdump + nucl_*.accession2taxid[.gz] files",
+    )
+    put.set_defaults(fn=cmd_db_update_taxonomy)
+
+    from .download import NCBI_TAXONOMY_BASE
+
+    pdt = dsub.add_parser(
+        "download-taxonomy",
+        help="fetch + install NCBI taxonomy data into <db>/taxonomy "
+        "(scripts/updateTaxonomy.sh; needs network egress)",
+    )
+    pdt.add_argument("db", help="database directory")
+    pdt.add_argument(
+        "--base-url", default=NCBI_TAXONOMY_BASE,
+        help="taxonomy mirror root (default: NCBI)",
+    )
+    pdt.set_defaults(fn=cmd_db_download_taxonomy)
+
+    pdg = dsub.add_parser(
+        "download-genomes",
+        help="fetch latest RefSeq Complete Genome assemblies for a group "
+        "(scripts/download/download_data_newest.sh; needs network egress)",
+    )
+    pdg.add_argument("dir", help="destination directory for the sequences")
+    pdg.add_argument("group", help="RefSeq group: bacteria, viruses, archaea, fungi, ...")
+    pdg.add_argument(
+        "--flow", choices=("newest", "release", "archive"), default="newest",
+        help="newest = latest assemblies (download_data_newest.sh); "
+        "release = dated RefSeq release volumes (download_data_release.sh); "
+        "archive = legacy old_refseq tarballs (download_data.sh)",
+    )
+    pdg.add_argument(
+        "--base-url", default=None,
+        help="mirror root (default: the NCBI root for the chosen flow)",
+    )
+    pdg.add_argument("--limit", type=int, default=None,
+                     help="cap the number of assemblies/volumes (smoke tests)")
+    pdg.set_defaults(fn=cmd_db_download_genomes)
+
+    pcln = dsub.add_parser("clean", help="remove built DB artifacts (scripts/clean.sh --reset)")
+    pcln.add_argument("db", help="database directory")
+    pcln.add_argument("--yes", action="store_true", help="skip confirmation")
+    pcln.set_defaults(fn=cmd_db_clean)
 
     pc = sub.add_parser("classify", help="classify reads against a database")
     pc.add_argument("-D", "--db", required=True, help="database directory")
@@ -349,6 +717,36 @@ def build_parser() -> argparse.ArgumentParser:
     pc.add_argument("--profile", action="store_true",
                     help="print phase timing summary")
     pc.set_defaults(fn=cmd_classify)
+
+    pa = sub.add_parser("abundance", help="abundance estimation from result CSVs")
+    pa.add_argument("-D", "--db", default=None, help="database directory (for taxonomy)")
+    pa.add_argument("-F", "--files", nargs="+", required=True, help="classification CSVs")
+    pa.add_argument("-c", "--min-confidence", type=float, default=0.5)
+    pa.add_argument("-g", "--min-gamma", type=float, default=0.0)
+    pa.add_argument("-a", "--min-abundance", type=float, default=0.0)
+    pa.add_argument("--highconfidence", "--hc", action="store_true")
+    pa.add_argument("--krona", action="store_true", help="write results.krn")
+    pa.add_argument("--mpa", action="store_true", help="write results.mpa")
+    pa.add_argument("-o", "--output", default=None)
+    pa.set_defaults(fn=cmd_abundance)
+
+    pm = sub.add_parser("merge", help="merge abundance CSVs by taxid")
+    pm.add_argument("files", nargs="+")
+    pm.add_argument("-o", "--output", required=True)
+    pm.set_defaults(fn=cmd_merge)
+
+    pr = sub.add_parser("report", help="human-readable pathogen report")
+    pr.add_argument("file", help="abundance CSV")
+    pr.add_argument("-o", "--output", default="results/report.txt")
+    pr.set_defaults(fn=cmd_report)
+
+    pv = sub.add_parser("verify", help="installation / database health check")
+    pv.add_argument("--db", default=None, help="database directory to check")
+    pv.add_argument("--device", default="cuda",
+                    help="torch device of the toy classification step: "
+                    "cuda (default, hand-written kernels; fails without a "
+                    "CUDA device) or cpu (plain-PyTorch twins)")
+    pv.set_defaults(fn=cmd_verify)
     return p
 
 

@@ -263,10 +263,27 @@ def _to_dev(a: np.ndarray, dev) -> torch.Tensor:
     return torch.from_numpy(a.view(np.int64)).to(dev)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to jn_cuclark_tpu_torch yet (ROADMAP {item})"
-    )
+def _check_label_range(labels, table, n_targets: int):
+    """Raise ValueError where a DB label lies outside [0, n_targets): the
+    formatter indexes the target names by label, and K3's small form skips
+    labels above T.  `labels` are the keys' 0-based labels; where there are
+    none (the table came from the .idx cache, which is keyed on the DB
+    files alone, so a targets file of fewer targets can meet it), the
+    table's stored labels+1 are checked, unless its label field cannot
+    hold a label past the range."""
+    labels = np.asarray(labels)
+    if len(labels):
+        lo, hi = int(labels.min()), int(labels.max())
+    elif table is not None and (1 << table.lb) - 2 > n_targets:
+        lo, hi = 0, radix_table.max_label1(table) - 1
+    else:
+        return
+    if lo < 0 or hi >= n_targets:
+        raise ValueError(
+            f"database label {lo if lo < 0 else hi} lies outside [0, "
+            f"{n_targets}): the DB was built for other targets than the "
+            f"{n_targets} of the targets definition"
+        )
 
 
 def _resolve_device(device) -> torch.device:
@@ -322,6 +339,7 @@ class Classifier:
         self.k = k
         self.target_names = target_names
         self.n_targets = len(target_names) - 1  # names include NA at 0
+        _check_label_range(labels, prebuilt_table, self.n_targets)
         self.plan = plan or BatchPlan()
         self.mesh = mesh
         if mesh is None:
@@ -365,6 +383,8 @@ class Classifier:
             index_cache
         ):
             table = radix_table.load_cache(index_cache, signature=index_sig)
+            # the cached table, not `labels`, is what classifies
+            _check_label_range((), table, self.n_targets)
         if table is None:
             table = radix_table.build(
                 np.asarray(canonical, dtype=np.uint64),

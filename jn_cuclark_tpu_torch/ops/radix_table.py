@@ -355,6 +355,21 @@ def occupied_count(slots: np.ndarray, c: int) -> int:
     return int((slots[:, c:] != EMPTY32).sum())
 
 
+def max_label1(table: RadixTable, rows_per_step: int = 1 << 20) -> int:
+    """The largest label+1 a built standard table holds (slots and stash;
+    0 for an empty table): the label field of each occupied slot, read a
+    block of rows at a time as int32 halves (EMPTY32 reads as -1)."""
+    c = table.slot_width
+    top = int(table.stash_labels.max(initial=0))
+    field = (1 << table.lb) - 1
+    halves = torch.from_numpy(table.slots.view(np.int32))
+    for r0 in range(0, len(halves), rows_per_step):
+        blk = halves[r0 : r0 + rows_per_step]
+        lab = torch.where(blk[:, c:] != -1, blk[:, :c] & field, 0)
+        top = max(top, int(lab.max()) if lab.numel() else 0)
+    return top
+
+
 def recover_keys(table: RadixTable):
     """(keys, labels1) recovered exactly from a built standard table: slot =
     (qlow << lb) | label1 with qlow the low 64-m1 bits of key * _MIX1 and

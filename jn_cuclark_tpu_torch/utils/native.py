@@ -1,12 +1,12 @@
 """ctypes bindings for the native C++ host runtime (`native/clark_native.cpp`).
 
 The runtime (FASTA/FASTQ record scan, the paired-end merge, 2-bit packing,
-`%g` CSV formatting, k-mer extraction, the host DB-build aggregate and DB
-serialization) is compiled from the repository's
-source at first use with `g++ -O3 -fPIC -fopenmp -shared` (utils/build.py);
-the committed `native/libclark_native.so` is not loaded, because it was
-built with `-march=native` on another host.  The port has no pure-numpy
-fallback for these entry points: a failed build raises.
+`%g` CSV formatting, k-mer extraction, the host DB-build aggregate, DB
+serialization and the abundance scan of result CSVs) is compiled from the
+repository's source at first use with `g++ -O3 -fPIC -fopenmp -shared`
+(utils/build.py); the committed `native/libclark_native.so` is not loaded,
+because it was built with `-march=native` on another host.  The port has
+no pure-numpy fallback for these entry points: a failed build raises.
 """
 
 from __future__ import annotations
@@ -115,6 +115,11 @@ def _load():
             _U64P, _U16P, ctypes.c_int64, ctypes.c_uint64, ctypes.c_int32,
             ctypes.c_int32, ctypes.c_int32, _U8P, _U8P, _U16P,
         ]
+        lib.abundance_scan.restype = ctypes.c_int64
+        lib.abundance_scan.argtypes = [
+            _U8P, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_double, ctypes.c_double, _U64P,
+        ]
         _lib = lib
         return lib
 
@@ -183,6 +188,45 @@ def scan_reads(
         for a in (ns, ne, ss, se):
             a += start
     return is_fasta, ns[:r], ne[:r], ss[:r], se[:r], ln[:r]
+
+
+def abundance_scan(
+    body, idx: int, min_gamma: float, min_conf: float, offset: int = 0
+):
+    """(labels, counts, total) of a classification-CSV body (any
+    buffer-protocol object, e.g. an mmap, starting at `offset`), or None
+    where the native scan cannot replicate the Python line loop of
+    abundance.estimate exactly (labels over 8 bytes or holding NUL, floats
+    such as `0.7_5` that strtod and Python parse differently); the loop
+    then reads the file.  Labels come in first-appearance order, as
+    estimate's dict order has them."""
+    lib = _load()
+    arr, _ = _u8(body)
+    arr = arr[offset:]
+    n = len(arr)
+    if n == 0:
+        return [], np.zeros(0, np.int64), 0
+    cap = int(np.count_nonzero(arr == ord("\n"))) + int(
+        np.count_nonzero(arr == ord("\r"))
+    ) + 1
+    keys = np.empty(cap, np.uint64)
+    total = lib.abundance_scan(
+        arr.ctypes.data_as(_U8P), n, idx, float(min_gamma), float(min_conf),
+        _p(keys, _U64P),
+    )
+    if total < 0:
+        return None
+    keys = keys[:total]
+    uniq, first, counts = np.unique(keys, return_index=True, return_counts=True)
+    order = np.argsort(first, kind="stable")
+    try:
+        labels = [
+            int(u).to_bytes(8, "little").rstrip(b"\x00").decode()
+            for u in uniq[order]
+        ]
+    except UnicodeDecodeError:  # a non-UTF-8 label: the Python loop decides
+        return None
+    return labels, counts[order], int(total)
 
 
 def quick_count(data: bytes) -> int:

@@ -282,8 +282,11 @@ def test_import_builder_leaves_jax_out():
         "import sys\n"
         "import jn_cuclark_tpu_torch.db.builder, jn_cuclark_tpu_torch.database\n"
         "import jn_cuclark_tpu_torch.db.device_build\n"
+        "import jn_cuclark_tpu_torch.abundance, jn_cuclark_tpu_torch.taxonomy\n"
+        "import jn_cuclark_tpu_torch.download, jn_cuclark_tpu_torch.cli\n"
+        "jn_cuclark_tpu_torch.cli.build_parser()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jn_cuclark_tpu')]\n"
+        "('jax', 'jn_cuclark_tpu', '__graft_entry__', 'bench')]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -313,8 +316,32 @@ def test_cli_db_build(tmp_path, device, capsys):
                 [stem + e for e in (".sz", ".ky", ".lb")])
     cfg = database.DBConfig.load(str(tmp_path))
     assert (cfg.k, cfg.htsize, cfg.profile_name) == (11, 4093, "custom4093")
-    with pytest.raises(NotImplementedError, match="A10"):
-        cli.main(["db", "set-targets", str(tmp_path)])
+    # db set-targets (which raised before the tools were ported): the
+    # genomes under Custom/ named by accession, each a species of a toy
+    # taxonomy; it writes targets.txt and a config.json naming it
+    (tmp_path / "Custom").mkdir()
+    tax = tmp_path / "taxonomy"
+    tax.mkdir()
+    for i in range(3):
+        body = (tmp_path / f"g{i}.fa").read_bytes().split(b"\n", 1)[1]
+        (tmp_path / "Custom" / f"g{i}.fa").write_bytes(
+            b">NC_%d.1 genome\n" % i + body)
+    (tax / "nodes.dmp").write_text("".join(
+        f"{t}\t|\t{p}\t|\t{r}\t|\tXX\t|\n" for t, p, r in
+        [(1, 1, "no rank"), (2, 1, "superkingdom")]
+        + [(800 + i, 2, "species") for i in range(3)]))
+    # set-targets stops on a missing merged.dmp or file named *nodes.dmp
+    for fn in ("merged.dmp", "delnodes.dmp"):
+        (tax / fn).write_text("")
+    (tax / "nucl_accss").write_text("".join(
+        f"NC_{i}\tNC_{i}.1\t{800 + i}\t{i}\n" for i in range(3)))
+    assert cli.main(["db", "set-targets", str(tmp_path)]) == 0
+    assert "(3 targets)" in capsys.readouterr().out
+    assert (tmp_path / "targets.txt").read_text() == "".join(
+        f"{tmp_path / 'Custom' / f'g{i}.fa'}\t{800 + i}\n" for i in range(3))
+    cfg = database.DBConfig.load(str(tmp_path))
+    assert (cfg.targets, cfg.subdb, cfg.rank) == (
+        str(tmp_path / "targets.txt"), str(tmp_path / "custom_0_canonical"), 0)
 
 
 def test_db_layout_helpers_match_jax(tmp_path):

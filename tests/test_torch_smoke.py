@@ -57,6 +57,16 @@ def test_phases_on_cpu(tmp_path, monkeypatch):
                                glen=2000, n_reads=2000)
     assert rs["refseq cycled"]["strategy"] == "labels"
     assert rs["refseq dense"]["strategy"] == "dense"
+    # phase 6 on the phase-4 DB, verify's toy batch on the CPU here
+    tools = chip_smoke.run_tools(dev, str(tmp_path), clf, str(scale), 3, prof,
+                                 launches, n_c3=600, c4_samples=3, n_c4=200)
+    assert tools["verify"][-1] == "STATUS: READY"
+    assert "[OK]   device pipeline (K1, K2, K3 on cpu)" in tools["verify"]
+    assert (tools["c3_reads"], tools["c3_taxa"], tools["c4_reads"]) == (
+        600, 3, 600)
+    assert tools["goldens_byte_equal"] == 9
+    assert tools["c3_pipeline_s"] > tools["c3_classify_s"] > 0
+    assert tools["label_check_table_bytes"] == clf.table.slots.nbytes
     for path in ("classify", "extended", "paired"):
         assert set(m["phase_s"][path]) >= {"scan", "pack", "dispatch",
                                            "device_wait", "format"}
