@@ -103,6 +103,22 @@ raises and exits non-zero before the result lines:
              records the device-busy share of a traced config-3 pipeline
              and the host seconds of Classifier's label-range check on
              this DB (the .lb labels, the .idx cache's table)
+  7 cluster  the cluster command (cluster.py), its processes this script
+             run as `chip_smoke.py cluster-child`, each path's CSVs
+             byte-equal to their references: sample-parallel (`cluster
+             --launch` of two processes on the card through an ssh stub,
+             phase 6's config-4 samples 0 and 1, one a host: the CSVs and
+             abundances equal phase 6's, cluster_abundance.csv their
+             merge, "Nodes processed: 2/2"); DB-sharded over two processes
+             with CLARK_TPU_DIST_BACKEND=gloo (two ranks share the card),
+             phase 4's reads and pairs (equal to phase 4's CSVs); one
+             process over NCCL, shard_db on phase 3's golden DB and reads
+             (equal to tests/golden).  A sharded run in cycles is the CPU
+             tests' (tests/test_torch_cluster.py): its own 48M-key load
+             would take the script past 650 s.  Prints one JSON line a path: each
+             process's wall, load seconds, table bytes and all_reduce
+             calls, bytes and seconds, rank 0's reads/s (pairs/s) of each
+             sample from its NodeResult, and the backend
 
 The last two lines are the kernels' JSON record and the run's contract
 line {"ok": true, "device": {...}}.  With no CUDA device it exits 1 and
@@ -2128,6 +2144,289 @@ def run_tools(dev, tmp: str, clf: Classifier, scale_dir: str, n_genomes: int,
     return m
 
 
+# --------------------------------------------------------------- phase 7
+def cluster_child(out_dir: str, argv: list) -> int:
+    """One process of a phase-7 cluster: `clark-torch <argv>` in this
+    process, with its kernel launches, phase timers (all_reduce: calls,
+    bytes, seconds), Classifier loads (seconds, bytes of its table rows)
+    and NodeResults written to <out_dir>/p<process id>.json.  Run as
+    `chip_smoke.py cluster-child <out_dir> cluster ...`."""
+    from jn_cuclark_tpu_torch import cluster, engine
+    from jn_cuclark_tpu_torch.parallel import dist
+
+    pid = int(os.environ.get("CLARK_TPU_PROCESS_ID", "0"))
+    rec = dict(pid=pid, loads=[], results=[], backend=dist.backend_for(
+        argv[argv.index("--device") + 1]))
+    load = engine.Classifier.load.__func__
+
+    def timed_load(cls, *a, **kw):
+        t = time.perf_counter()
+        clf = load(cls, *a, **kw)
+        rec["loads"].append(dict(
+            seconds=time.perf_counter() - t,
+            table_bytes=(clf.sharded.local_bytes if clf.sharded is not None
+                         else clf.table.nbytes)))
+        return clf
+
+    def keep(fn):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            for r in out if isinstance(out, list) else [out]:
+                rec["results"].append(dataclasses.asdict(r))
+            return out
+        return run
+
+    engine.Classifier.load = classmethod(timed_load)
+    cluster.run_node = keep(cluster.run_node)
+    cluster.run_sharded = keep(cluster.run_sharded)
+    kernels.reset_launches()
+    t = time.perf_counter()
+    with profiling.collect() as ph:
+        rc = cli.main(argv)
+    rec.update(rc=rc, wall_s=time.perf_counter() - t,
+               launches=dict(kernels.LAUNCHES), phase_s=dict(ph.totals),
+               phase_calls=dict(ph.counts), phase_bytes=dict(ph.nbytes))
+    with open(os.path.join(out_dir, f"p{pid}.json"), "w") as f:
+        json.dump(rec, f)
+    return rc
+
+
+CLUSTER_TIMEOUT_S = 600  # one phase-7 cluster run, its loads included
+
+
+def _cluster_procs(argvs, envs) -> list:
+    """Start the processes (each in a session of its own), wait for all;
+    past CLUSTER_TIMEOUT_S, or on any error, kill every process they
+    started.  Returns [(rc, stdout + stderr)]."""
+    import signal
+
+    procs = [subprocess.Popen(a, env=e, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              start_new_session=True)
+             for a, e in zip(argvs, envs)]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=CLUSTER_TIMEOUT_S)
+            outs.append((p.returncode, out))
+    finally:
+        for p in procs:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(p.pid, signal.SIGKILL)
+    return outs
+
+
+def _cluster_env(**values) -> dict:
+    env = {k: v for k, v in os.environ.items() if not k.startswith(
+        ("CLARK_TPU_NUM_PROCESSES", "CLARK_TPU_PROCESS_ID",
+         "CLARK_TPU_COORDINATOR", "CLARK_TPU_NODE_NAME",
+         "CLARK_TPU_DIST_BACKEND"))}
+    env["GLOO_SOCKET_IFNAME"] = "lo"  # a world on this host's loopback
+    env.update({k: str(v) for k, v in values.items()})
+    return env
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _cluster_conf(work: str, database: str, reads: dict,
+                  classification: str = "", extra: str = "") -> str:
+    """A cluster config of master nodeA and worker nodeB on 127.0.0.1."""
+    os.makedirs(work)
+    port = _free_port()
+    lines = "\n".join(f"{h} = {', '.join(ps)}" for h, ps in reads.items())
+    conf = os.path.join(work, "cluster.conf")
+    with open(conf, "w") as f:
+        f.write(f"""[cluster]
+master = nodeA
+workers = nodeB
+backend = jax_distributed
+coordinator_address = 127.0.0.1:{port}
+report_port = {_free_port()}
+{extra}
+
+[paths]
+cuclark_dir = {work}
+database = {database}
+results_dir = results
+
+[classification]
+{classification}
+
+[reads]
+{lines}
+""")
+    return conf
+
+
+def _cluster_record(name: str, work: str, launches: dict, n_procs: int,
+                    rates: dict) -> dict:
+    """Phase 7's record of one path from its processes' JSON files: the
+    launches summed over them (under `name`), each process's wall, load
+    seconds, table bytes, phase timers and all_reduce calls, bytes and
+    seconds, and the rate of each node (its reads, or pairs, over the
+    NodeResult seconds of the lowest process that ran it)."""
+    recs = []
+    for pid in range(n_procs):
+        with open(os.path.join(work, "out", f"p{pid}.json")) as f:
+            recs.append(json.load(f))
+    launches[name] = {k: sum(r["launches"][k] for r in recs)
+                      for k in kernels.LAUNCHES}
+    # a node's NodeResult from the lowest process that ran it: rank 0 on
+    # the sharded paths, its own process on the sample-parallel one
+    nodes = {r["hostname"]: r for rec in recs[::-1] for r in rec["results"]}
+    for r in nodes.values():
+        if not r["success"]:
+            raise AssertionError(f"{name}: {r['hostname']} failed: "
+                                 f"{r['error_message']}")
+    return dict(
+        path=name, backend=recs[0]["backend"],
+        processes=[dict(pid=r["pid"], wall_s=r["wall_s"],
+                        load_s=[x["seconds"] for x in r["loads"]],
+                        table_bytes=[x["table_bytes"] for x in r["loads"]],
+                        all_reduce=dict(
+                            calls=r["phase_calls"].get("all_reduce", 0),
+                            bytes=r["phase_bytes"].get("all_reduce", 0),
+                            seconds=r["phase_s"].get("all_reduce", 0.0)),
+                        phase_s=r["phase_s"])
+                   for r in recs],
+        nodes={h: {unit: nodes[h]["reads"] / nodes[h]["elapsed_seconds"],
+                   "elapsed_s": nodes[h]["elapsed_seconds"],
+                   "reads": nodes[h]["reads"]}
+               for h, unit in rates.items()})
+
+
+def _same_file(what: str, got: str, want: str):
+    with open(got, "rb") as a, open(want, "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError(f"{what}: {got} differs from {want}")
+
+
+def _nodes_ok(work: str, n: int):
+    with open(os.path.join(work, "results", "cluster_report.txt")) as f:
+        report = f.read()
+    if f"Nodes processed: {n}/{n}" not in report:
+        raise AssertionError(f"{work}: the report says\n{report}")
+
+
+def run_cluster(dev, tmp: str, scale_dir: str, tools_dir: str,
+                golden_dir: str, launches: dict) -> dict:
+    """Phase 7: the cluster command (cluster.py) in processes of this
+    script (`cluster_child`) on `dev`'s kind, each path's CSVs byte-equal
+    to their references: (a) sample-parallel, `cluster --launch` of two
+    processes through an ssh stub, phase 6's config-4 samples 0 and 1, one
+    a host, against phase 6's CSVs, abundances and their merge; (b)
+    DB-sharded, two processes with CLARK_TPU_DIST_BACKEND=gloo, phase 4's
+    reads and pairs against phase 4's CSVs; (c) one process, a world of
+    one over the device's own backend (NCCL on the card), shard_db on
+    phase 3's golden DB and reads, against tests/golden.  A DB-sharded
+    run in cycles (its own 48M-key load) is left to the CPU tests
+    (tests/test_torch_cluster.py), to keep the script's time.  Returns
+    each path's record (_cluster_record)."""
+    from jn_cuclark_tpu_torch import abundance
+
+    device = dev.type
+    me = [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+          "cluster-child"]
+    m = {}
+
+    def world(name, conf, n, **env):
+        work = os.path.dirname(conf)
+        os.makedirs(os.path.join(work, "out"))
+        outs = _cluster_procs(
+            [me + [os.path.join(work, "out"), "cluster", "-c", conf,
+                   "--device", device]] * n,
+            [_cluster_env(CLARK_TPU_NUM_PROCESSES=n, CLARK_TPU_PROCESS_ID=i,
+                          CLARK_TPU_NODE_NAME=("nodeA", "nodeB")[i], **env)
+             for i in range(n)])
+        for rc, out in outs:
+            if rc:
+                raise AssertionError(f"{name}: rc {rc}\n{out[-3000:]}")
+
+    # (a) sample-parallel through `cluster --launch` and an ssh stub
+    work = os.path.join(tmp, "cluster_a")
+    stub = os.path.join(tmp, "fakessh")
+    with open(stub, "w") as f:
+        f.write("#!/bin/sh\nshift\nexec sh -c \"$*\"\n")
+    os.chmod(stub, 0o755)
+    samples = [os.path.join(tools_dir, f"c4_s{s}.fa") for s in range(2)]
+    out_dir = os.path.join(work, "out")
+    conf = _cluster_conf(
+        work, tools_dir, {"nodeA": [samples[0]], "nodeB": [samples[1]]},
+        extra=f"ssh_command = {stub}\nlaunch_command = "
+              f"{' '.join(me)} {out_dir}")
+    os.makedirs(out_dir)
+    ((rc, out),) = _cluster_procs(
+        [[sys.executable, "-m", "jn_cuclark_tpu_torch.cli", "cluster", "-c",
+          conf, "--launch", "--device", device]],
+        [_cluster_env(PYTHONPATH=ROOT)])
+    if rc:
+        raise AssertionError(f"cluster --launch: rc {rc}\n{out[-3000:]}")
+    _nodes_ok(work, 2)
+    res = os.path.join(work, "results")
+    for s, host in enumerate(("nodeA", "nodeB")):
+        _same_file("sample-parallel", os.path.join(res, f"{host}_c4_s{s}.csv"),
+                   os.path.join(tools_dir, f"c4_res{s}.csv"))
+        _same_file("sample-parallel",
+                   os.path.join(res, f"{host}_abundance.csv"),
+                   os.path.join(tools_dir, f"c4_res{s}_abundance.csv"))
+    merged = os.path.join(work, "merged.csv")
+    abundance.merge([os.path.join(tools_dir, f"c4_res{s}_abundance.csv")
+                     for s in range(2)], merged)
+    _same_file("sample-parallel", os.path.join(res, "cluster_abundance.csv"),
+               merged)
+    m["sample-parallel"] = _cluster_record(
+        "cluster sample-parallel", work, launches, 2,
+        {"nodeA": "reads_per_s", "nodeB": "reads_per_s"})
+
+    # (b) DB-sharded, resident, over gloo
+    reads = os.path.join(scale_dir, "reads.fa")
+    mates = [os.path.join(scale_dir, f"r{i}.fq") for i in (1, 2)]
+    work = os.path.join(tmp, "cluster_b")
+    conf = _cluster_conf(work, tools_dir, {"nodeA": [reads], "nodeB": mates},
+                         "shard_db = true")
+    world("sharded", conf, 2, CLARK_TPU_DIST_BACKEND="gloo")
+    _nodes_ok(work, 2)
+    res = os.path.join(work, "results")
+    _same_file("sharded", os.path.join(res, "nodeA_reads.csv"),
+               os.path.join(scale_dir, "res.csv"))
+    _same_file("sharded", os.path.join(res, "nodeB_r1.csv"),
+               os.path.join(scale_dir, "res_pair.csv"))
+    m["sharded"] = _cluster_record(
+        "cluster sharded", work, launches, 2,
+        {"nodeA": "reads_per_s", "nodeB": "pairs_per_s"})
+
+    # (c) a world of one over the device's backend (NCCL on the card)
+    _, _, _, prof, k, greads, _, _, golden = GOLDENS[0]
+    write_toy_taxonomy(golden_dir, 4)  # the golden targets' taxids 1001-1003
+    database.DBConfig(
+        db_dir=golden_dir, targets=os.path.join(golden_dir, "targets.txt"),
+        subdb=os.path.join(golden_dir, "db"), rank=0, profile_name=prof.name,
+        k=k, gap=prof.default_gap, min_count_target=0, htsize=prof.htsize,
+        light=prof.light).save()
+    work = os.path.join(tmp, "cluster_d")
+    conf = _cluster_conf(work, golden_dir,
+                         {"nodeA": [os.path.join(GOLD, greads)]},
+                         "shard_db = true")
+    with open(conf) as f:
+        text = f.read().replace("workers = nodeB", "workers =")
+    with open(conf, "w") as f:
+        f.write(text)
+    world("sharded one process", conf, 1)
+    _same_file("sharded one process",
+               os.path.join(work, "results", "nodeA_reads.csv"),
+               os.path.join(GOLD, golden))
+    m["sharded one process"] = _cluster_record(
+        "cluster sharded one process", work, launches, 1,
+        {"nodeA": "reads_per_s"})
+    return m
+
+
 N_GENOMES = 16  # phase 4: bench.py config 2, 16 genomes x 3 Mbp
 
 
@@ -2214,13 +2513,24 @@ def main() -> int:
         printed = set(launches)
         tools = run_tools(dev, tmp, clf, scale_dir, N_GENOMES, params.FULL,
                           launches)
-        check_launches(launches)
         print(f"tools: config 3 pipeline_seconds {tools['c3_pipeline_s']:.3f}"
               f", config 4 batch_seconds {tools['c4_batch_s']:.3f}",
               flush=True)
         _phase("6 tools", t, launches={
             name: n for name, n in launches.items() if name not in printed},
             **tools)
+
+        t = time.perf_counter()
+        printed = set(launches)
+        del clf, dense_clf  # the card's memory for the cluster's processes
+        torch.cuda.empty_cache()
+        paths = run_cluster(dev, tmp, scale_dir, os.path.join(tmp, "tools"),
+                            os.path.join(tmp, "golden0"), launches)
+        check_launches(launches)
+        for rec in paths.values():
+            print(json.dumps(rec), flush=True)
+        _phase("7 cluster", t, launches={
+            name: n for name, n in launches.items() if name not in printed})
 
     record = {"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
@@ -2273,6 +2583,10 @@ PATH_KERNELS = {
     "verify": {"window_canonicals", "probe", *_SMALL},
     "tools config 3": {"window_canonicals", "probe", *_SMALL},
     "tools config 4": {"window_canonicals", "probe", *_SMALL},
+    "cluster sample-parallel": {"window_canonicals", "probe", *_SMALL},
+    "cluster sharded": {"window_canonicals", "probe_chunk", *_SMALL},
+    "cluster sharded one process": {"window_canonicals", "probe_chunk",
+                                    "top2"},
 }
 
 
@@ -2288,4 +2602,6 @@ def check_launches(launches: dict):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["cluster-child"]:  # a process of phase 7
+        sys.exit(cluster_child(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -10,6 +10,7 @@ Subcommands (reference equivalents):
     merge            kent -m
     report           kent -r
     verify           kent --verify
+    cluster          kent-mpi (-p preflight, --launch self-launch)
 
 Classification (single-end, paired-end, --extended, list mode with
 --jobs) runs on one device, the table resident or streamed in
@@ -19,7 +20,11 @@ composes with --db-cycles), and `--dp M` with --shard-db does both on an
 M x N/M mesh.  `--device` picks cuda (the first N cards; N more than the
 machine has raises) or cpu (N CPU shards).  abundance, merge and report
 run on the host; verify runs a toy batch through K1-K3 on `--device`.
-`cluster` (multi-host) waits for ROADMAP A9.
+`cluster -c CONF` runs a cluster config: its samples one after another
+(backend local), or one process per host over torch.distributed (backend
+jax_distributed), each classifying its own samples
+or, with shard_db, holding 1/P of the table while all classify every
+sample together (cluster.py).
 
 Run `python -m jn_cuclark_tpu_torch.cli <cmd> --help` for flags.
 """
@@ -559,6 +564,12 @@ def _check_pipeline(device):
     return f"K1, K2, K3 on {total.device}"
 
 
+def cmd_cluster(args):
+    from . import cluster
+
+    return cluster.main(args)
+
+
 def _count_targets(cfg):
     from .io.targets import parse_targets
 
@@ -747,6 +758,21 @@ def build_parser() -> argparse.ArgumentParser:
                     "cuda (default, hand-written kernels; fails without a "
                     "CUDA device) or cpu (plain-PyTorch twins)")
     pv.set_defaults(fn=cmd_verify)
+
+    pcl = sub.add_parser("cluster", help="multi-host / multi-sample coordinator")
+    pcl.add_argument("-c", "--config", required=True, help="cluster config (INI)")
+    pcl.add_argument("-p", "--preflight", action="store_true", help="check config and hosts only")
+    pcl.add_argument("--launch", action="store_true",
+                     help="self-launch the whole cluster: SSH-spawn one "
+                          "worker per host with process ids preset "
+                          "(kent-mpi launcher mode)")
+    pcl.add_argument("--device", default="cuda",
+                     help="torch device of every process: cuda (default; "
+                     "the labels' all-reduce over NCCL, or gloo with "
+                     "CLARK_TPU_DIST_BACKEND=gloo; a process without a CUDA "
+                     "device exits 1) or cpu (gloo); --launch passes it on")
+    pcl.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    pcl.set_defaults(fn=cmd_cluster)
     return p
 
 

@@ -30,13 +30,17 @@ several samples through each chunk upload.
 Over several devices (`mesh=`, parallel/mesh.py): mesh_mode="db" shards the
 table's rows over the mesh (each shard's range optionally cycled), "dp"
 puts the table on every device and splits each batch's rows, and a
-two-axis mesh does both.  The flat path raises NotImplementedError.
+two-axis mesh does both.  A mesh across processes (db mode only) ends each
+batch in collectives that every process issues in one order, so such a
+Classifier takes one classify call at a time.  The flat path raises
+NotImplementedError.
 """
 
 from __future__ import annotations
 
 import bisect
 import collections
+import contextlib
 import dataclasses
 import itertools
 import os
@@ -335,6 +339,11 @@ class Classifier:
         if mesh_mode not in ("dp", "db"):
             raise ValueError(f"mesh_mode must be 'dp' or 'db', got "
                              f"{mesh_mode!r}")
+        if mesh is not None and mesh.collective and mesh_mode != "db":
+            # each process of a dp mode would classify other reads than
+            # its peers
+            raise ValueError("a mesh across processes runs mesh_mode='db' "
+                             "(the table's rows sharded over the world)")
         self.profile = profile
         self.k = k
         self.target_names = target_names
@@ -345,11 +354,11 @@ class Classifier:
         if mesh is None:
             self.device = _resolve_device(device)
         else:
-            # batches land on the mesh's first device, which gathers the
-            # results; `device` is not used
-            for d in set(mesh.devices):
+            # batches land on the mesh's first device of this process,
+            # which gathers the results; `device` is not used
+            for d in mesh.local_devices:
                 _resolve_device(d)
-            self.device = mesh.devices[0]
+            self.device = mesh.local_devices[0]
         auto_cycles = db_cycles in ("auto", 0, None)
         self.db_cycles = db_cycles = 1 if auto_cycles else int(db_cycles)
         if db_cycles < 1:
@@ -360,6 +369,10 @@ class Classifier:
         self._upload_lock = threading.Lock()
         self._staging = None
         self._copy_streams: dict = {}
+        # a process mesh's batches end in collectives that every process
+        # must issue in one order: one classify call at a time
+        self._one_call = (threading.Lock() if mesh is not None
+                          and mesh.collective else None)
 
         if mesh is not None and mesh_mode == "db":
             # the table's rows sharded over the mesh, each shard's range
@@ -627,17 +640,44 @@ class Classifier:
         already merged, as merge_paired gives them); returns (rows,
         n_reads), rows a generator of formatted CSV body chunks (whole
         lines).  `hit_stats` (extended runs only) accumulates the
-        reference's MIN/MAX/AVG distinct-targets-hit report."""
+        reference's MIN/MAX/AVG distinct-targets-hit report.  On a process
+        mesh the rows generator holds the Classifier's one call from its
+        first row to its last."""
         if self.db_cycles > 1:
             with maybe_phase("scan"):
                 _, ns, ne, ss, se, ln = native.scan_reads(data)
-            return self._classify_cycled_native(
-                data, ns, ne, ss, se, ln, paired, extended, hit_stats
-            ), len(ln)
-        n_reads = native.quick_count(data)
-        scan = _ScanStream(data, self.plan.scan_chunk_bytes)
-        return self._classify_native(data, scan, paired, extended,
-                                     hit_stats), n_reads
+            rows = self._classify_cycled_native(
+                data, ns, ne, ss, se, ln, paired, extended, hit_stats)
+            n_reads = len(ln)
+        else:
+            n_reads = native.quick_count(data)
+            scan = _ScanStream(data, self.plan.scan_chunk_bytes)
+            rows = self._classify_native(data, scan, paired, extended,
+                                         hit_stats)
+        if self._one_call is None:
+            return rows, n_reads
+        return self._exclusive_rows(rows), n_reads
+
+    @contextlib.contextmanager
+    def _exclusive(self):
+        """Hold a process mesh's one call; raise ValueError where another
+        call holds it.  A no-op for other Classifiers."""
+        if self._one_call is None:
+            yield
+            return
+        if not self._one_call.acquire(blocking=False):
+            raise ValueError(
+                "a Classifier on a mesh across processes takes one classify "
+                "call at a time: every process must issue its collectives "
+                "in one order")
+        try:
+            yield
+        finally:
+            self._one_call.release()
+
+    def _exclusive_rows(self, rows):
+        with self._exclusive():
+            yield from rows
 
     def classify_file(
         self,
@@ -656,6 +696,13 @@ class Classifier:
         merger (file.cc:205-268).  Returns speed stats (reads, seconds,
         reads_per_min), mirroring printSpeedStats (CuCLARK_hh.hh:1932-1939),
         and for extended runs the HitStats under "hit_stats"."""
+        with self._exclusive():
+            return self._classify_file(objects_path, result_path,
+                                       paired_path, extended, verbose,
+                                       slab_bytes)
+
+    def _classify_file(self, objects_path, result_path, paired_path,
+                       extended, verbose, slab_bytes) -> dict:
         paired = paired_path is not None
         if paired:
             slabs = iter_merged_slabs(objects_path, paired_path, slab_bytes)
@@ -732,7 +779,13 @@ class Classifier:
         batches probe it (`_classify_files_cycled`), unless the inputs
         total more than CLARK_TPU_CYCLE_OUTER_MAX_BYTES (default 4 GiB),
         since that path holds every sample and its packed batches in host
-        memory; above the cap the samples run one after another."""
+        memory; above the cap the samples run one after another.  A
+        Classifier on a process mesh takes jobs=1 and raises ValueError for
+        more."""
+        if self._one_call is not None and jobs > 1:
+            raise ValueError(
+                f"classify_files(jobs={jobs}) on a mesh across processes: "
+                "its collectives need one call at a time (jobs=1)")
         if self.db_cycles > 1 and len(items) > 1:
             total_bytes = sum(
                 os.path.getsize(p)
@@ -743,7 +796,8 @@ class Classifier:
             cap = int(os.environ.get("CLARK_TPU_CYCLE_OUTER_MAX_BYTES",
                                      4 << 30))
             if total_bytes <= cap:
-                return self._classify_files_cycled(items, extended)
+                with self._exclusive():
+                    return self._classify_files_cycled(items, extended)
             print(
                 f"cycle-outer scheduling skipped: inputs total "
                 f"{total_bytes >> 20} MB > {cap >> 20} MB cap "

@@ -15,8 +15,18 @@ Three modes, as in the JAX package:
 
 A key lives in exactly one row and the stash counts only on db shard 0 (at
 cycle 0), so the db shards' per-window labels are disjoint and `_reduce`
-sums them onto one device: the JAX package's psum, and the one place a
-multi-process run adds its all-reduce.  Scoring then runs as on one device.
+sums them onto one device: the JAX package's psum.  Scoring then runs as on
+one device.
+
+Across processes (parallel/dist.py initialized), make_mesh and make_mesh2d
+with across_processes=True give a mesh of every process's devices, each
+process's contiguous, as the JAX package's sort by (process_index, id) does;
+each entry names the process that owns it.  A process fills and probes only the db shards it owns (1/P
+of the table in its host memory), and the batch's labels, summed over its
+own shards, are summed over the world by one all_reduce (`_all_reduce`)
+before the miss mask and the scoring, which every process runs on the
+whole batch.  Every process packs the same batches, so the all-reduces pair
+up in order.  Only the db mode crosses processes.
 """
 
 from __future__ import annotations
@@ -26,6 +36,8 @@ import torch
 
 from ..ops import device_pipeline, radix_table, score
 from ..utils import memory
+from ..utils.profiling import maybe_phase
+from . import dist
 
 
 def _device(d) -> torch.device:
@@ -40,10 +52,12 @@ def _distinct(devices) -> list:
     return list(dict.fromkeys(devices))
 
 
-def _placements(grid) -> list:
-    """The (device, db shard) pairs of a [dp][db] grid, each once: the dp
-    blocks on one device share a db shard's rows there."""
-    return _distinct((d, j) for row in grid for j, d in enumerate(row))
+def _placements(mesh) -> list:
+    """The (device, db shard) pairs of this process's entries of the
+    mesh, each once: the dp blocks on one device share a db shard's rows
+    there."""
+    return _distinct((d, j) for i, row in enumerate(mesh.grid)
+                     for j, d in enumerate(row) if (i, j) in mesh.local)
 
 
 class Mesh:
@@ -51,14 +65,22 @@ class Mesh:
 
     `devices` is a list for one axis and a list of equal rows for two: row
     i holds the db shards of dp block i.  A device may appear more than
-    once.  `grid` is always the list of rows (one row on a one-axis mesh)."""
+    once.  `grid` is always the list of rows (one row on a one-axis mesh).
 
-    def __init__(self, devices, axis_names):
+    `owners`, in the shape of `devices`, gives the process of each entry
+    and makes a process mesh, whose batches end in an all-reduce over the
+    world (a world of one included); this process's entries are `local`,
+    the others' devices only placeholders.  Without it every entry is this
+    process's and nothing is reduced across processes."""
+
+    def __init__(self, devices, axis_names, owners=None):
         self.axis_names = tuple(axis_names)
         if len(self.axis_names) == 1:
             rows = [list(devices)]
+            owner_rows = None if owners is None else [list(owners)]
         elif len(self.axis_names) == 2:
             rows = [list(r) for r in devices]
+            owner_rows = None if owners is None else [list(r) for r in owners]
         else:
             raise ValueError(f"a mesh has one or two axes, got {axis_names}")
         if not rows or not rows[0] or any(len(r) != len(rows[0]) for r in rows):
@@ -67,6 +89,20 @@ class Mesh:
         self.shape = ((len(rows[0]),) if len(self.axis_names) == 1
                       else (len(rows), len(rows[0])))
         self.devices = [d for r in self.grid for d in r]
+        self.collective = owner_rows is not None
+        if self.collective:
+            if [len(r) for r in owner_rows] != [len(r) for r in rows]:
+                raise ValueError("a mesh's owners take its devices' shape")
+            rank = dist.process_index()
+        else:
+            owner_rows, rank = [[0] * len(r) for r in rows], 0
+        self.local = {(i, j) for i, r in enumerate(owner_rows)
+                      for j, p in enumerate(r) if p == rank}
+        if not self.local:
+            raise ValueError("the mesh holds no device of this process")
+        self.local_devices = _distinct(
+            d for i, r in enumerate(self.grid) for j, d in enumerate(r)
+            if (i, j) in self.local)
 
     @property
     def size(self) -> int:
@@ -91,31 +127,97 @@ def _devices(n: int | None, device, what: str) -> list:
     raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
 
 
+def process_devices(n_devices: int | None, device="cuda") -> list:
+    """This process's share of n_devices devices of `device`'s kind:
+    n_devices / P of them in a world of P processes (raises where P does
+    not divide it), by default every CUDA card the process sees
+    (CUDA_VISIBLE_DEVICES picks them) or one CPU shard.  Under torchrun
+    (LOCAL_RANK set) a process drives its own card, cuda:LOCAL_RANK, alone,
+    and a share of more than one card raises."""
+    p = dist.process_count()
+    if n_devices is not None and n_devices % p:
+        raise ValueError(f"{n_devices} devices do not split over {p} "
+                         "processes")
+    n = None if n_devices is None else n_devices // p
+    what = (f"{n_devices} devices over {p} processes" if p > 1
+            else f"a mesh of {n_devices}")
+    local_rank = dist.local_rank()
+    if torch.device(device).type == "cuda" and local_rank is not None:
+        if n not in (None, 1):
+            raise ValueError(f"{what}: under torchrun (LOCAL_RANK) a "
+                             "process drives one card")
+        card = dist.local_device(device)
+        _devices(card.index + 1, device, f"LOCAL_RANK={local_rank}")
+        return [card]
+    return _devices(n, device, what)
+
+
+def _world_devices(n_devices: int | None, device):
+    """(devices, owners) of every process's share, in process order."""
+    if not dist.is_initialized():
+        raise ValueError("a process mesh needs the world of "
+                         "parallel/dist.initialize")
+    local = process_devices(n_devices, device)
+    p = dist.process_count()
+    return local * p, [r for r in range(p) for _ in local]
+
+
 def make_mesh(n_devices: int | None = None, axis: str = "db",
-              device="cuda") -> Mesh:
+              device="cuda", across_processes: bool = False) -> Mesh:
     """One-axis mesh over the first n_devices CUDA devices (all of them by
     default); raises where the machine has fewer.  device="cpu" gives
-    n_devices CPU shards (one by default)."""
+    n_devices CPU shards (one by default).  across_processes=True gives a
+    process mesh of every process's process_devices(n_devices) in the
+    world that parallel/dist.initialize joined (a world of one included)."""
+    if across_processes:
+        devs, owners = _world_devices(n_devices, device)
+        return Mesh(devs, (axis,), owners=owners)
     return Mesh(_devices(n_devices, device, f"a mesh of {n_devices}"),
                 (axis,))
 
 
-def make_mesh2d(dp: int, db: int, device="cuda") -> Mesh:
+def make_mesh2d(dp: int, db: int, device="cuda",
+                across_processes: bool = False) -> Mesh:
     """[dp, db] mesh over the first dp*db devices, column-major as in the
-    JAX package: column j holds dp consecutive devices."""
-    devs = _devices(dp * db, device, f"mesh {dp}x{db}")
-    return Mesh([[devs[j * dp + i] for j in range(db)] for i in range(dp)],
-                ("dp", "db"))
+    JAX package: column j holds dp consecutive devices.  With
+    across_processes=True the dp*db devices are every process's share, so
+    with dp equal to a process's devices column j is process j's: db
+    crosses processes and dp stays inside one."""
+    if across_processes:
+        devs, owners = _world_devices(dp * db, device)
+    else:
+        devs = _devices(dp * db, device, f"mesh {dp}x{db}")
+        owners = None
+
+    def grid(xs):
+        return [[xs[j * dp + i] for j in range(db)] for i in range(dp)]
+
+    return Mesh(grid(devs), ("dp", "db"),
+                owners=None if owners is None else grid(owners))
 
 
-def _reduce(parts, device) -> torch.Tensor:
+def _reduce(parts, device, like=None) -> torch.Tensor:
     """The db shards' per-window labels (int32 label+1, 0 = miss) summed
     on `device`.  They are disjoint, so the sum is each window's label; it
-    is taken in int32, before any narrowing to u16."""
+    is taken in int32, before any narrowing to u16.  With no parts (a
+    process owning none of a dp block's shards) the sum is zeros in the
+    shape of `like`."""
+    if not parts:
+        return torch.zeros(like.numel(), dtype=torch.int32, device=device)
     total = parts[0].to(device)
     for p in parts[1:]:
         total = total + p.to(device)
     return total
+
+
+def _all_reduce(labs, device) -> list:
+    """Each dp block's labels summed over the world's processes, by one
+    all_reduce of the blocks side by side on `device`."""
+    flat = torch.cat([x.to(device) for x in labs])
+    with maybe_phase("all_reduce", flat.numel() * flat.element_size()):
+        dist.all_reduce_sum_(flat)
+    return [part.to(x.device) for part, x in
+            zip(torch.split(flat, [x.numel() for x in labs]), labs)]
 
 
 def _split_rows(x: torch.Tensor, n: int):
@@ -132,24 +234,35 @@ def _gather(outs, device):
                  for i in range(len(outs[0])))
 
 
-def _run_blocks(grid, words, vwords, k: int, probe_cols, probe, finish):
-    """One batch over a [dp][db] grid of devices: the rows split into one
+def _run_blocks(mesh: Mesh, words, vwords, k: int, probe_cols, probe,
+                finish):
+    """One batch over a mesh's [dp][db] grid: the rows split into one
     block per grid row; in each, K1 once on every distinct device of the
-    row, probe(j, device, q) for each db shard j, the labels summed onto
-    the row's first device and the invalid windows zeroed, then
-    finish(labels [R_i, W]) -> a tuple of outputs.  The outputs come back
-    in read order on the grid's first device."""
+    row this process owns, probe(j, device, q) for each of its db shards
+    j, the labels summed onto the row's first such device (this process's
+    first device where it owns none of the row).  On a process mesh the
+    blocks' sums are then summed over the world.  The invalid windows are
+    zeroed and finish(labels [R_i, W]) gives a tuple of outputs, which
+    come back in read order on this process's first device."""
+    home = mesh.local_devices[0]
     with torch.inference_mode():
-        outs = []
-        for row, w, v in zip(grid, _split_rows(words, len(grid)),
-                             _split_rows(vwords, len(grid))):
+        qs, labs = [], []
+        for i, (row, w, v) in enumerate(zip(
+                mesh.grid, _split_rows(words, len(mesh.grid)),
+                _split_rows(vwords, len(mesh.grid)))):
+            mine = [(j, d) for j, d in enumerate(row) if (i, j) in mesh.local]
+            at = mine[0][1] if mine else home
             q = {d: device_pipeline.window_canonicals(w.to(d), v.to(d), k,
                                                       probe_cols)
-                 for d in _distinct(row)}
-            lab = _reduce([probe(j, d, q[d].view(-1))
-                           for j, d in enumerate(row)], row[0])
-            outs.append(finish(device_pipeline._masked(q[row[0]], lab)))
-        return _gather(outs, grid[0][0])
+                 for d in _distinct([at] + [d for _, d in mine])}
+            labs.append(_reduce([probe(j, d, q[d].view(-1))
+                                 for j, d in mine], at, like=q[at]))
+            qs.append(q[at])
+        if mesh.collective:
+            labs = _all_reduce(labs, home)
+        outs = [finish(device_pipeline._masked(q, lab))
+                for q, lab in zip(qs, labs)]
+        return _gather(outs, home)
 
 
 class ShardedRadixTable:
@@ -162,7 +275,10 @@ class ShardedRadixTable:
     rows, cycle c's from row j*rpd + c*rpc.  Rows past the table are EMPTY,
     so a shard wholly or partly past it probes them as misses.  On a
     two-axis mesh the batch's rows also split over dp, each dp block
-    probing every db shard of its row of the mesh."""
+    probing every db shard of its row of the mesh.  On a process mesh
+    every process plans the whole table but fills only its own db shards'
+    rows, and an "auto" cycle count is each process's, agreed as the
+    largest over the world so that every process runs the same passes."""
 
     def __init__(self, mesh: Mesh, keys, labels1, n_targets: int, k: int,
                  db_cycles: int | str = 1, transient: int = 0):
@@ -176,24 +292,29 @@ class ShardedRadixTable:
         self.m1, self.lb, self.c = plan.m1, plan.lb, plan.c
         if db_cycles in ("auto", 0, None):
             db_cycles, _ = memory.auto_db_cycles(
-                plan.n_rows * plan.c * 8, transient, device=mesh.devices[0],
-                n_shards=self.ndb)
+                plan.n_rows * plan.c * 8, transient,
+                device=mesh.local_devices[0], n_shards=self.ndb)
+            if mesh.collective:
+                db_cycles = dist.agree_max(db_cycles)
         self.n_cycles = db_cycles = int(db_cycles)
         if db_cycles < 1:
             raise ValueError(f"db_cycles must be positive, got {db_cycles}")
         rpd = -(-plan.n_rows // self.ndb)
         self.rpd = rpd = -(-rpd // db_cycles) * db_cycles
         self.rpc = rpd // db_cycles
-        # host chunks [cycle][db shard]
+        # host chunks [cycle]{db shard}, of this process's db shards only
+        self._placements = _placements(mesh)
+        self.local_db = sorted({j for _, j in self._placements})
         self._host = [
-            [radix_table.fill_rows(keys, labels1, plan, r0, r0 + self.rpc)[0]
-             for r0 in (j * rpd + cyc * self.rpc for j in range(self.ndb))]
+            {j: radix_table.fill_rows(keys, labels1, plan, r0,
+                                      r0 + self.rpc)[0]
+             for j, r0 in ((j, j * rpd + cyc * self.rpc)
+                           for j in self.local_db)}
             for cyc in range(db_cycles)
         ]
-        self._placements = _placements(mesh.grid)
         self._stash = {d: radix_table.put_stash(plan.stash_keys,
                                                 plan.stash_labels, d)
-                       for d in _distinct(mesh.devices)}
+                       for d in mesh.local_devices}
         self._resident = None
         if db_cycles == 1:
             self._resident = {
@@ -205,6 +326,11 @@ class ShardedRadixTable:
     def shard_bytes(self) -> int:
         """Device bytes of one shard's chunk."""
         return self.rpc * self.c * 8
+
+    @property
+    def local_bytes(self) -> int:
+        """Bytes of the table rows this process holds: its db shards'."""
+        return len(self.local_db) * self.rpd * self.c * 8
 
     def _probe(self, chunks, cycle: int):
         def probe(j, d, q):
@@ -224,7 +350,7 @@ class ShardedRadixTable:
             raise RuntimeError("the table is cycled: batches run through "
                                "upload_cycle and cycle_step")
         return _run_blocks(
-            self.mesh.grid, words, vwords, self.k, probe_cols,
+            self.mesh, words, vwords, self.k, probe_cols,
             self._probe(self._resident, 0),
             lambda lab: device_pipeline.score_from_labels(
                 lab, n_targets=self.n_targets, extended=extended))
@@ -249,7 +375,7 @@ class ShardedRadixTable:
         else:
             def finish(lab):
                 return (score.counts_top2(lab, self.n_targets)[0],)
-        return _run_blocks(self.mesh.grid, words, vwords, self.k,
+        return _run_blocks(self.mesh, words, vwords, self.k,
                            probe_cols, self._probe(chunks, cycle), finish)[0]
 
 
@@ -297,7 +423,7 @@ def shard_reads_db(mesh: Mesh, table: radix_table.RadixTable, n_targets: int,
     shards = {
         (d, j): torch.from_numpy(
             slots[j * rpd : (j + 1) * rpd].view(np.int32)).to(d)
-        for d, j in _placements(mesh.grid)
+        for d, j in _placements(mesh)
     }
     stash = {d: radix_table.put_stash(table.stash_keys, table.stash_labels, d)
              for d in _distinct(mesh.devices)}
@@ -309,7 +435,7 @@ def shard_reads_db(mesh: Mesh, table: radix_table.RadixTable, n_targets: int,
 
     def batch_fn(words, vwords, extended=False, probe_cols=None):
         return _run_blocks(
-            mesh.grid, words, vwords, k, probe_cols, probe,
+            mesh, words, vwords, k, probe_cols, probe,
             lambda lab: device_pipeline.score_from_labels(
                 lab, n_targets=n_targets, extended=extended))
 

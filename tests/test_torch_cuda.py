@@ -196,3 +196,81 @@ def test_grouped_probes_on_hot_rows(dev):
     assert torch.equal(radix_table.probe(
         table, torch.from_numpy(keys.view(np.int64)).to(dev)).cpu(),
         torch.from_numpy(labels1))
+
+
+# A rank of a world on the card: each rank holds the labels of every
+# n-th window of a config-2 batch (32,768 x 224 int32, the rest 0), as a
+# db shard does; after the all-reduce every rank holds every label.
+REDUCE = """\
+import os
+import sys
+import torch
+from jn_cuclark_tpu_torch.parallel import dist
+from jn_cuclark_tpu_torch.parallel.mesh import process_devices
+
+dist.initialize(device="cuda")
+rank, n = dist.process_index(), dist.process_count()
+idx = torch.arange(32768 * 224, device="cuda")
+want = (idx % 65535 + 1).to(torch.int32)
+lab = torch.where(idx % n == rank, want, 0).to(torch.int32)
+dist.all_reduce_sum_(lab)
+ok = lab.is_cuda and lab.dtype == torch.int32 and torch.equal(lab, want)
+# under torchrun the process drives cuda:LOCAL_RANK, and only that card
+card = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+ok = ok and torch.cuda.current_device() == card.index and (
+    "LOCAL_RANK" not in os.environ or process_devices(None) == [card])
+dist.shutdown()
+sys.exit(0 if ok else 1)
+"""
+
+
+def _reduce_world(tmp_path, n, env_of):
+    """REDUCE in n processes, rank r with the variables env_of(r, port)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    script = tmp_path / "reduce.py"
+    script.write_text(REDUCE)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith("CLARK_TPU_") and k not in (
+                "WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT")}
+    procs = []
+    for rank in range(n):
+        env = dict(base, PYTHONPATH=root, GLOO_SOCKET_IFNAME="lo",
+                   **env_of(rank, port))
+        procs.append(subprocess.Popen([sys.executable, str(script)], env=env,
+                                      stderr=subprocess.PIPE, text=True))
+    try:
+        errs = [p.communicate(timeout=240)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert [p.returncode for p in procs] == [0] * n, errs
+
+
+@pytest.mark.parametrize("backend, n", [("gloo", 2), ("nccl", 1)])
+def test_labels_all_reduce_on_the_card(dev, tmp_path, backend, n):
+    """The db shards' label sum across processes: gloo with two ranks on
+    one card (CUDA tensors staged through the host), NCCL in a world of
+    one; every rank ends with every label."""
+    _reduce_world(tmp_path, n, lambda rank, port: dict(
+        CLARK_TPU_DIST_BACKEND=backend, CLARK_TPU_NUM_PROCESSES=str(n),
+        CLARK_TPU_PROCESS_ID=str(rank),
+        CLARK_TPU_COORDINATOR=f"127.0.0.1:{port}"))
+
+
+def test_torchrun_world_on_the_card(dev, tmp_path):
+    """A world formed from torchrun's variables, one process a card over
+    NCCL: each drives cuda:LOCAL_RANK alone and ends with every label."""
+    n = torch.cuda.device_count()
+    _reduce_world(tmp_path, n, lambda rank, port: dict(
+        WORLD_SIZE=str(n), RANK=str(rank), LOCAL_RANK=str(rank),
+        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)))

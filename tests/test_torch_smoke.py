@@ -67,6 +67,22 @@ def test_phases_on_cpu(tmp_path, monkeypatch):
     assert tools["goldens_byte_equal"] == 9
     assert tools["c3_pipeline_s"] > tools["c3_classify_s"] > 0
     assert tools["label_check_table_bytes"] == clf.table.slots.nbytes
+    # phase 7: the cluster's three paths in processes of the script, on
+    # the CPU over gloo (the world of one too)
+    cl = chip_smoke.run_cluster(dev, str(tmp_path), str(scale),
+                                str(tmp_path / "tools"),
+                                str(tmp_path / "golden0"), launches)
+    assert {p: r["backend"] for p, r in cl.items()} == dict.fromkeys(
+        ("sample-parallel", "sharded", "sharded one process"), "gloo")
+    sharded = cl["sharded"]["processes"]
+    assert [p["table_bytes"] for p in sharded] == [
+        [clf.table.slots.nbytes // 2]] * 2
+    for p in sharded:  # one reduce a batch, of int32 labels
+        assert p["all_reduce"]["calls"] > 0
+        assert p["all_reduce"]["bytes"] % (4 * p["all_reduce"]["calls"]) == 0
+    assert cl["sharded"]["nodes"]["nodeB"]["reads"] == 300
+    assert cl["sharded one process"]["processes"][0]["all_reduce"]["calls"] > 0
+    assert cl["sample-parallel"]["processes"][1]["all_reduce"]["calls"] == 0
     for path in ("classify", "extended", "paired"):
         assert set(m["phase_s"][path]) >= {"scan", "pack", "dispatch",
                                            "device_wait", "format"}
