@@ -11,7 +11,7 @@ raises and exits non-zero before the result lines:
   1 build    compiles the native host runtime (g++) and the two CUDA kernel
              libraries (nvcc, sm_90a), all at once, from the checkout's
              sources
-  2 kernels  K1-K8 on the card against their plain-PyTorch twins on the
+  2 kernels  K1-K9 on the card against their plain-PyTorch twins on the
              same inputs, exact equality (integers; tolerance 0); K1 at
              strides 64, 256 and 4,096, N on window edges, reads of exactly
              k characters, W no multiple of its run; K3 in each form that
@@ -36,7 +36,14 @@ raises and exits non-zero before the result lines:
              (its bucketed form against the stable-sort twin) at k = 9-32,
              a padded partition, a bucket over its capacity split level by
              level, a key of 100,000 occurrences mid-range, all keys
-             equal and n = 1, each case raising its branch of the plan
+             equal and n = 1, each case raising its branch of the plan;
+             K9 (the flat path's search) with keys of bit 63 set (k = 32)
+             up to 2^64 - 2, queries below the first key and past the
+             last, the pad query, one key, N not a power of two, an empty
+             index, Q = 1, and a config-2-sized index of 48M keys; K5's
+             flat form over ragged reads (of 0 and 1 queries too), ties,
+             the pad queries, T + 1 at 4,096 and 4,097, 65,535 targets,
+             no query
   3 goldens  classify the reference's golden reads on the card (single-end,
              --extended, paired): the six CSVs must be byte-equal to
              tests/golden; rebuild three golden DBs with device="cuda"
@@ -87,7 +94,11 @@ raises and exits non-zero before the result lines:
              call, and the form a row past the hash form's tile takes;
              the miss mask between the probe and K3 by its device ops;
              K1's run plan, K4's form, and the SASS instruction counts of
-             K1, K3's three forms and K4 (cuobjdump)
+             K1, K3's three forms and K4 (cuobjdump); K9 and K5's flat form
+             on the flat path's first config-2 batch (2^20 queries against
+             the sorted 48M-key index, loaded here with packed=False and
+             kept for phase 8), torch.searchsorted plus the gather and
+             torch.bincount their library calls
 
   6 tools    after phase 5, on phase 4's DB and Classifier: `verify --db`
              (READY, its toy batch through K1-K3 on the card); bench.py
@@ -104,7 +115,7 @@ raises and exits non-zero before the result lines:
              and the host seconds of Classifier's label-range check on
              this DB (the .lb labels, the .idx cache's table)
   7 cluster  the cluster command (cluster.py), its processes this script
-             run as `chip_smoke.py cluster-child`, each path's CSVs
+             run as `chip_smoke.py cli-child`, each path's CSVs
              byte-equal to their references: sample-parallel (`cluster
              --launch` of two processes on the card through an ssh stub,
              phase 6's config-4 samples 0 and 1, one a host: the CSVs and
@@ -119,13 +130,27 @@ raises and exits non-zero before the result lines:
              process's wall, load seconds, table bytes and all_reduce
              calls, bytes and seconds, rank 0's reads/s (pairs/s) of each
              sample from its NodeResult, and the backend
+  8 host paths  the flat sorted-array path (packed=False, K9 + K5's flat
+             form) on phase 4's DB and reads, without warm-up runs, each
+             CSV byte-equal to phase 4's: (a) plain and --extended on the
+             400,000 reads; (b) over a mesh of the card repeated 4 times.
+             (f) a burst of 200 kernels inside a `profiling.trace` in
+             this long-lived process, every one in its trace (and how
+             many a bare torch.profiler session loses at the same age,
+             at its start and at its end); `classify --trace-dir` on config 3's
+             20,000 reads through the CLI in this process (the kernels
+             its trace names recorded) and in a process of its own, its
+             trace naming K1's, K2's and K3's kernels; both CSVs phase
+             6's.  One JSON line a
+             path: reads/s, seconds, index bytes on the card, launches.
+             Then every path's launch counts are checked
 
 The last two lines are the kernels' JSON record and the run's contract
 line {"ok": true, "device": {...}}.  With no CUDA device it exits 1 and
 prints neither.  It takes no arguments; a rehearsal at a smaller scale
 calls the phase functions (check_kernels, run_scale, run_out_of_core,
-run_refseq, time_kernels, run_tools) with smaller sizes, as tests/test_torch_smoke.py
-does on the CPU.
+run_refseq, time_kernels, run_tools, run_cluster, run_host_paths) with
+smaller sizes, as tests/test_torch_smoke.py does on the CPU.
 """
 
 from __future__ import annotations
@@ -153,13 +178,17 @@ from jn_cuclark_tpu_torch.engine import (
     BatchPlan,
     Classifier,
     _check_label_range,
+    flat_read_cuts,
+    flat_queries,
 )
 from jn_cuclark_tpu_torch.io import dbformat
+from jn_cuclark_tpu_torch.io.fasta import parse_reads
 from jn_cuclark_tpu_torch.io.targets import parse_targets
 from jn_cuclark_tpu_torch.ops import (
     bits,
     device_pipeline,
     kernels,
+    lookup,
     radix_table,
     score,
 )
@@ -186,6 +215,8 @@ KERNELS = {
                     "jn_cuclark_tpu/ops/radix_table.py:411"),
     "probe_dense": (_KDIR + "classify.cu",
                     "jn_cuclark_tpu/ops/radix_table.py:602"),
+    "lookup": (_KDIR + "classify.cu", "jn_cuclark_tpu/ops/lookup.py:41"),
+    "counts_flat": (_KDIR + "classify.cu", "jn_cuclark_tpu/ops/score.py:17"),
 }
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 U64_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -426,6 +457,90 @@ def k5_cases(seed: int = 0):
         lab = rng.integers(0, T + 1, size=(R, W)).astype(np.int32)
         lab[::9] = 0
         yield label, torch.from_numpy(lab), T
+
+
+def _index(keys: np.ndarray, rng, max_label: int = 65535):
+    """(keys ascending as u64, labels1 in [1, max_label]) of distinct keys."""
+    keys = np.unique(np.asarray(keys, dtype=np.uint64))
+    return keys, rng.integers(1, max_label + 1, size=len(keys)).astype(np.int32)
+
+
+def k9_cases(seed: int = 0):
+    """(label, keys [N] int64, labels1 [N] int32, q [Q] int64) on the CPU
+    for the sorted-array search: keys with bit 63 set (k = 32) up to
+    2^64 - 2, queried with stored keys, random misses, 0, 2^64 - 2, values
+    below the first key and past the last, and the pad query 2^64 - 1;
+    one key; N not a power of two at k = 31; an empty index; Q = 1; every
+    query one key."""
+    rng = np.random.default_rng(seed)
+    top = np.uint64((1 << 64) - 2)
+    keys, labels1 = _index(np.concatenate([
+        rng.integers(1 << 20, (1 << 64) - 2, size=100_000, dtype=np.uint64),
+        [top]]), rng)
+    edges = np.array([0, 1, keys[0] - 1, keys[0], keys[-1], top,
+                      lookup.PAD_QUERY], np.uint64)
+    q = np.concatenate([keys[rng.permutation(len(keys))[:50_000]],
+                        rng.integers(0, 1 << 64, size=50_000, dtype=np.uint64,
+                                     endpoint=False), edges,
+                        np.full(100, lookup.PAD_QUERY, np.uint64)])
+    yield "k=32 bit 63", keys, labels1, q[rng.permutation(len(q))]
+    one = np.array([np.uint64(12345)])
+    yield ("one key", one, np.array([7], np.int32),
+           np.array([0, 12344, 12345, 12346, lookup.PAD_QUERY], np.uint64))
+    keys, labels1 = _index(rng.integers(0, 1 << 62, size=1_000_003,
+                                        dtype=np.uint64), rng, 16)
+    assert len(keys) & (len(keys) - 1)  # no power of two
+    q = np.concatenate([keys[::3], rng.integers(0, 1 << 62, size=300_000,
+                                                dtype=np.uint64),
+                        np.array([keys[-1] + 1, 1 << 62, 1 << 63,
+                                  lookup.PAD_QUERY], np.uint64)])
+    yield "n=1000003 k=31", keys, labels1, q
+    yield ("empty index", np.zeros(0, np.uint64), np.zeros(0, np.int32),
+           keys[:1000])
+    yield "Q=1", keys, labels1, keys[len(keys) // 2 : len(keys) // 2 + 1]
+    yield "one key queried", keys, labels1, np.full(5000, keys[777])
+
+
+def _k9_tensors(keys, labels1, q, dev):
+    return _i64(keys).to(dev), torch.from_numpy(labels1).to(dev), _i64(q).to(dev)
+
+
+def k9_index_48m(dev, n: int = 47_999_520, seed: int = 12):
+    """A config-2-sized index made on `dev`: n random distinct k = 31 keys
+    sorted, labels in [1, 16], and 2^20 queries, half of them keys."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    keys = torch.randint(0, 1 << 62, (n + n // 16,), device=dev, generator=g)
+    keys = torch.unique(keys)[:n]  # sorted; below 2^62, so as u64 too
+    labels1 = torch.randint(1, 17, (keys.shape[0],), device=dev, generator=g,
+                            dtype=torch.int32)
+    q = torch.cat([keys[torch.randint(0, keys.shape[0], (1 << 19,), device=dev,
+                                      generator=g)],
+                   torch.randint(0, 1 << 62, (1 << 19,), device=dev,
+                                 generator=g)])
+    return keys, labels1, q
+
+
+def k5_flat_cases(seed: int = 0):
+    """(label, labels1 [Q] int32, read_id [Q] int32, R, T) on the CPU for
+    K5's flat form: ragged reads of 0 to 300 queries (reads of 0 and 1
+    among them), each mostly one label, with ties on count; the pad
+    queries the JAX package appends (label 0, read 0); T + 1 = 4,096 and
+    4,097; T = 16 at a flat batch's R; T = 65,535; no query at all."""
+    rng = np.random.default_rng(seed)
+    yield ("ties T=9", np.array([3, 3, 5, 5, 0, 9, 2, 2, 9, 9, 1, 0], np.int32),
+           np.array([0, 0, 0, 0, 0, 2, 2, 2, 2, 2, 3, 3], np.int32), 5, 9)
+    for label, T, R in (("T=16", 16, 7200), ("T+1=4096", 4095, 300),
+                        ("T+1=4097", 4096, 300), ("T=65535", 65535, 64)):
+        sizes = rng.integers(0, 301, size=R)
+        sizes[::17], sizes[1::17] = 0, 1
+        rid = np.repeat(np.arange(R, dtype=np.int32), sizes)
+        main = rng.integers(1, T + 1, size=R)[rid]
+        lab = np.where(rng.random(len(rid)) < 0.6, main,
+                       rng.integers(0, T + 1, size=len(rid))).astype(np.int32)
+        pad = 1000
+        yield (label, np.concatenate([lab, np.zeros(pad, np.int32)]),
+               np.concatenate([rid, np.zeros(pad, np.int32)]), R, T)
+    yield ("no query", np.zeros(0, np.int32), np.zeros(0, np.int32), 9, 16)
 
 
 def occurrences(rng, k: int, n: int):
@@ -779,6 +894,25 @@ def check_kernels(dev, big_tables: bool = True) -> int:
         rid = torch.arange(R, device=dev).repeat_interleave(W)
         counts = score.counts_from_hits_plain(lab.view(-1), rid, R, T)
         _same(f"K5 {label}", score.counts_top2(lab, T),
+              (counts,) + score.read_results_plain(counts))
+        n += 1
+    for label, keys, labels1, q in k9_cases():
+        keys, labels1, q = _k9_tensors(keys, labels1, q, dev)
+        _same(f"K9 {label}", [lookup.lookup_labels(keys, labels1, q)],
+              [lookup.lookup_labels_plain(keys, labels1, q)])
+        if not torch.equal(lookup.lookup_labels(keys, labels1, keys), labels1):
+            raise AssertionError(f"K9 {label}: a stored key missed")
+        n += 1
+    if big_tables:
+        keys, labels1, q = k9_index_48m(dev)
+        _same("K9 48M keys", [lookup.lookup_labels(keys, labels1, q)],
+              [lookup.lookup_labels_plain(keys, labels1, q)])
+        del keys, labels1, q
+        n += 1
+    for label, lab, rid, R, T in k5_flat_cases():
+        lab, rid = torch.from_numpy(lab).to(dev), torch.from_numpy(rid).to(dev)
+        counts = score.counts_from_hits_plain(lab, rid, R, T)
+        _same(f"K5 flat {label}", score.counts_flat(lab, rid, R, T),
               (counts,) + score.read_results_plain(counts))
         n += 1
     for label, case, branch in k6_cases():
@@ -1531,6 +1665,51 @@ def _probe_reads(slots: torch.Tensor, rows: torch.Tensor, qlow: torch.Tensor,
                 hi_matched=matched, bytes=distinct * c * 4 + 32 * matched)
 
 
+def _search_reads(keys: torch.Tensor, q: torch.Tensor) -> dict:
+    """What K9's searches of q in keys must read: the distinct 32-B sectors
+    of keys that their lower-bound steps and final compare visit, and a
+    sector of labels (4 B each) per hit's; with the compares they make.
+    The pad query makes none."""
+    n = keys.shape[0]
+    q = q[q != bits.EMPTY]
+    kf, qf = keys ^ bits._SIGN, q ^ bits._SIGN
+    lo, hi = torch.zeros_like(q), torch.full_like(q, n)
+    seen, compares = [], 0
+    while True:
+        act = (lo < hi).nonzero().squeeze(1)
+        if not act.numel():
+            break
+        mid = lo[act] + ((hi[act] - lo[act]) >> 1)
+        seen.append(mid >> 2)
+        compares += act.numel()
+        less = kf[mid] < qf[act]
+        lo[act] = torch.where(less, mid + 1, lo[act])
+        hi[act] = torch.where(less, hi[act], mid)
+    fin = lo[lo < n]
+    seen.append(fin >> 2)
+    hit = fin[keys[fin] == q[lo < n]]
+    key_sectors = int(torch.unique(torch.cat(seen)).numel())
+    label_sectors = int(torch.unique(hit >> 3).numel())
+    return dict(queries=int(q.numel()), compares=compares + int(fin.numel()),
+                hits=int(hit.numel()), key_sectors=key_sectors,
+                label_sectors=label_sectors,
+                bytes=32 * (key_sectors + label_sectors))
+
+
+def flat_batch(flat: Classifier, fa: bytes, n_records: int = 20_000):
+    """The first flat-path batch of the reads `fa` as _classify_flat cuts
+    it: (q [Q] int64, read ids [Q] int32, its reads) on the flat
+    classifier's device, from the first n_records records' windows."""
+    head = b"\n".join(fa.split(b"\n", 2 * n_records)[:-1]) + b"\n"
+    qvals, rid, woff = flat_queries(parse_reads(head), flat.k)
+    r0, r1 = next(flat_read_cuts(woff, flat.plan.max_queries,
+                                 flat._dense_rows(flat.plan.max_reads)))
+    q0, q1 = int(woff[r0]), int(woff[r1])
+    return (_i64(qvals[q0:q1]).to(flat.device),
+            torch.from_numpy((rid[q0:q1] - r0).astype(np.int32)).to(
+                flat.device), r1 - r0)
+
+
 def _bound(nbytes: int, ops: int):
     """(least milliseconds the card could take, what bounds it)."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1565,6 +1744,9 @@ def _device_split(fn, dev, reps: int) -> dict:
     fn()  # warm-up
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the card's stamps lead the host clock: launches right at the
+        # window's start would fall out of the trace (utils/profiling.py)
+        time.sleep(profiling.TRACE_LEAD_S)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize(dev)
@@ -1635,8 +1817,8 @@ def pad_partition(canon, label, pg):
             pg)
 
 
-def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
-                 tmp: str, n_genomes: int, reps: int = 20,
+def time_kernels(dev, clf: Classifier, dense: Classifier, flat: Classifier,
+                 fa: bytes, lens, tmp: str, n_genomes: int, reps: int = 20,
                  dense_rows: int = 2048):
     """Each kernel and its twin at the shapes of the phase-4 paths, with
     its bound and, where one PyTorch call computes the same function, that
@@ -1646,7 +1828,9 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
     the first chunk of the table's 4-cycle split, K8 against the `dense`
     classifier's two-plane table; K3 (its small and hash forms, then the
     hash and block forms) and K5 also at 65,535 targets on a [dense_rows,
-    W] grid; K6 on the first partition of the scale run's
+    W] grid; K9 and K5's flat form on the first batch of the flat path
+    (`flat`, packed=False: its sorted index, the batch's queries as
+    _classify_flat cuts them); K6 on the first partition of the scale run's
     occurrences, as the build hands it over and padded to a power of two
     as it was before."""
     _, _, _, ss, se, _ = native.scan_reads(fa)
@@ -1683,6 +1867,14 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
         return rid * (T + 1) + lab.view(-1).long(), R * (T + 1)
 
     qf = q.view(-1)
+    # the flat path's first batch: K9's queries, then K5's flat form over
+    # its labels; the yardsticks search the carriers flipped once here
+    fk, fl = flat.keys, flat.labels1
+    fq, fqr, fnb = flat_batch(flat, fa)
+    flab = lookup.lookup_labels(fk, fl, fq)
+    search = _search_reads(fk, fq)
+    fk_flip, fq_flip = fk ^ bits._SIGN, fq ^ bits._SIGN
+    fids = fqr.long() * (T + 1) + flab.long()
     stash_bytes = _nbytes(tbl.stash_keys, tbl.stash_labels)
     # the 4-cycle split of the table: K7 against each chunk (chunk 0, which
     # carries the stash, is the one recorded), on the queries bucketed there
@@ -1771,6 +1963,24 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
             p[0].shape[0] * max(p[0].shape[0].bit_length() - 1, 1),
             lambda name=name: torch.sort(sort_keys[name], stable=True),
         ) for name, p in (("aggregate", part), ("aggregate padded", part_pad))},
+        "lookup": (
+            lambda: lookup.lookup_labels(fk, fl, fq),
+            lambda: lookup.lookup_labels_plain(fk, fl, fq),
+            # the queries and the labels out, and what the searches visit
+            _nbytes(fq, flab) + search["bytes"], search["compares"],
+            lambda: fl[torch.searchsorted(fk_flip, fq_flip).clamp_(
+                max=fk.shape[0] - 1)],
+        ),
+        "counts_flat": (
+            lambda: score.counts_flat(flab, fqr, fnb, T),
+            lambda: (lambda c: (c,) + score.read_results_plain(c))(
+                score.counts_from_hits_plain(flab, fqr, fnb, T)),
+            # the labels and read ids in; the [R, T+1] counts and the five
+            # [R] int32 results out
+            _nbytes(flab, fqr) + 4 * fnb * (T + 1 + 5),
+            flab.numel() + fnb * T,
+            lambda: torch.bincount(fids, minlength=fnb * (T + 1)),
+        ),
         "probe_dense": (
             lambda: radix_table.probe_dense(dt, qf),
             lambda: radix_table.probe_dense_plain(
@@ -1866,6 +2076,9 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, fa: bytes, lens,
                      counts_forms={t: kernels.counts_form(t + 1, pc)
                                    for t in (T, 65535)},
                      probe_reads=reads, dense_m1_m2=[dt.m1, dt.m2],
+                     flat_batch=dict(reads=fnb, queries=int(fq.numel()),
+                                     index_keys=int(fk.shape[0]),
+                                     targets=T, search=search),
                      probe_bins=kernels.group_bins(1 << tbl.m1),
                      dense_bins=[kernels.group_bins(1 << dt.m1),
                                  kernels.plane2_form(dt.m2, dt.c)])
@@ -2145,12 +2358,13 @@ def run_tools(dev, tmp: str, clf: Classifier, scale_dir: str, n_genomes: int,
 
 
 # --------------------------------------------------------------- phase 7
-def cluster_child(out_dir: str, argv: list) -> int:
-    """One process of a phase-7 cluster: `clark-torch <argv>` in this
-    process, with its kernel launches, phase timers (all_reduce: calls,
-    bytes, seconds), Classifier loads (seconds, bytes of its table rows)
-    and NodeResults written to <out_dir>/p<process id>.json.  Run as
-    `chip_smoke.py cluster-child <out_dir> cluster ...`."""
+def cli_child(out_dir: str, argv: list) -> int:
+    """One process of the CLI for phases 7 and 8: `clark-torch <argv>` in
+    this process (argv names --device), with its kernel launches, phase
+    timers (all_reduce: calls, bytes, seconds), Classifier loads (seconds,
+    bytes of its table rows) and a cluster's NodeResults written to
+    <out_dir>/p<process id>.json.  Run as `chip_smoke.py cli-child
+    <out_dir> cluster ...` (or `classify ...`)."""
     from jn_cuclark_tpu_torch import cluster, engine
     from jn_cuclark_tpu_torch.parallel import dist
 
@@ -2317,7 +2531,7 @@ def _nodes_ok(work: str, n: int):
 def run_cluster(dev, tmp: str, scale_dir: str, tools_dir: str,
                 golden_dir: str, launches: dict) -> dict:
     """Phase 7: the cluster command (cluster.py) in processes of this
-    script (`cluster_child`) on `dev`'s kind, each path's CSVs byte-equal
+    script (`cli_child`) on `dev`'s kind, each path's CSVs byte-equal
     to their references: (a) sample-parallel, `cluster --launch` of two
     processes through an ssh stub, phase 6's config-4 samples 0 and 1, one
     a host, against phase 6's CSVs, abundances and their merge; (b)
@@ -2332,7 +2546,7 @@ def run_cluster(dev, tmp: str, scale_dir: str, tools_dir: str,
 
     device = dev.type
     me = [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
-          "cluster-child"]
+          "cli-child"]
     m = {}
 
     def world(name, conf, n, **env):
@@ -2427,6 +2641,200 @@ def run_cluster(dev, tmp: str, scale_dir: str, tools_dir: str,
     return m
 
 
+# --------------------------------------------------------------- phase 8
+# the kernel names of K1, K2 and K3's small form that a traced classify on
+# the card must show
+TRACE_KERNELS = ("window_canonicals_kernel", "group_probe_kernel",
+                 "top2_small_kernel")
+
+
+def _device_bytes(clf: Classifier) -> int:
+    """Device bytes of a flat classifier's sorted keys and labels (every
+    block on a mesh)."""
+    blocks = clf.keys if isinstance(clf.keys, list) else [clf.keys]
+    labels = clf.labels1 if isinstance(clf.labels1, list) else [clf.labels1]
+    return _nbytes(*blocks, *labels)
+
+
+def _head(path: str, n: int, out: str) -> str:
+    """The first n records of a two-line-per-record FASTA, written to out."""
+    with open(path, "rb") as f:
+        lines = f.read().split(b"\n", 2 * n)[:-1]
+    with open(out, "wb") as f:
+        f.write(b"\n".join(lines) + b"\n")
+    return out
+
+
+def _trace_kernels(trace_dir: str) -> tuple[int, int, set]:
+    """(trace files, events, kernel names) of the Chrome traces in a
+    directory."""
+    traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
+              if f.endswith(".json")]
+    events = [e for f in traces for e in json.load(open(f))["traceEvents"]]
+    return len(traces), len(events), [e["name"] for e in events
+                                      if e.get("cat") == "kernel"]
+
+
+TRACE_BURST = 200  # kernels launched at once inside a trace
+
+
+def _burst_kept(trace_dir: str, n: int = TRACE_BURST) -> dict:
+    """A burst, the last n kernel launches of the Chrome traces in a
+    directory: how many of its kernels were kept, and how many of its
+    launches before the first kept kernel and after the last were lost
+    (launch order is the runtime calls')."""
+    events = [e for f in os.listdir(trace_dir) if f.endswith(".json")
+              for e in json.load(open(os.path.join(trace_dir, f)))[
+                  "traceEvents"]]
+    launched = [e["args"]["correlation"] for e in sorted(
+        (e for e in events if e.get("cat") == "cuda_runtime"
+         and e["name"].startswith("cudaLaunchKernel")),
+        key=lambda e: e["ts"])][-n:]
+    kept = {e["args"].get("correlation") for e in events
+            if e.get("cat") == "kernel"}
+    at = [i for i, c in enumerate(launched) if c in kept]
+    return dict(kept=len(at), lost_first=at[0] if at else len(launched),
+                lost_last=len(launched) - 1 - at[-1] if at else 0)
+
+
+def trace_burst(dev, tmp: str) -> dict:
+    """TRACE_BURST small kernels launched at once inside a bare
+    torch.profiler session, which opens right before them and closes
+    right after they finish, then inside `profiling.trace` (after its
+    warm-up): how many of each burst reach the trace, and how many were
+    lost before the first kept and after the last."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.zeros(1024, device=dev)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_BURST):
+            x.add_(1)
+        torch.cuda.synchronize(dev)
+    bare = os.path.join(tmp, "burst_bare")
+    os.makedirs(bare, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(bare, "t.json"))
+    guarded = os.path.join(tmp, "burst_trace")
+    with profiling.trace(guarded, cuda=True):
+        for _ in range(TRACE_BURST):
+            x.add_(1)
+    b, g = _burst_kept(bare), _burst_kept(guarded)
+    return dict(launched=TRACE_BURST, bare_kept=b["kept"],
+                bare_lost_first=b["lost_first"],
+                bare_lost_last=b["lost_last"], trace_kept=g["kept"],
+                trace_lost_first=g["lost_first"],
+                trace_lost_last=g["lost_last"])
+
+
+def run_host_paths(dev, tmp: str, prof: Profile, flat: Classifier,
+                   launches: dict, tools_dir: str, mesh_n: int = 4,
+                   sub: int | None = None):
+    """Phase 8: the flat sorted-array path (packed=False; `flat`, phase
+    5's classifier) on phase 4's DB and reads, each CSV byte-equal to
+    phase 4's (no warm-up runs): (a) plain and extended; (b) over a mesh
+    of `dev` repeated mesh_n times, on the first `sub` reads where given
+    (against the first `sub` rows of phase 4's CSV).  (f) on the card,
+    `trace_burst`, whose `profiling.trace` must keep every kernel; then
+    `classify --trace-dir` on phase 6's config-3 reads, in this process
+    (the kernels named recorded) and in a process of its own, whose trace
+    must name K1's, K2's and K3's kernels on the card (be non-empty on the
+    CPU); each CSV equals phase 6's.  Prints one JSON line a path; returns
+    the metrics."""
+    reads, res = os.path.join(tmp, "reads.fa"), os.path.join(tmp, "res")
+    want = {}
+    for kind, suffix in (("plain", ""), ("extended", "_ext")):
+        with open(res + suffix + ".csv", "rb") as f:
+            want[kind] = f.read()
+    sub_reads = reads
+    if sub is not None:
+        sub_reads = _head(reads, sub, os.path.join(tmp, "reads_sub.fa"))
+        want["sub"] = b"\n".join(
+            want["plain"].split(b"\n", sub + 1)[:-1]) + b"\n"
+    m = {"subset_reads": sub}
+
+    def path(name, clf, kind="plain"):
+        out = os.path.join(tmp, name.replace(" ", "_"))
+        src = sub_reads if kind == "sub" else reads
+        with profiling.collect() as ph:
+            stats, wall = _path(launches, name, lambda: clf.classify_file(
+                src, out, extended=kind == "extended"))
+        with open(out + ".csv", "rb") as f:
+            if f.read() != want[kind]:
+                raise AssertionError(f"{name}: the CSV differs from phase 4's")
+        m[name] = dict(reads=stats["reads"], wall_s=wall,
+                       reads_per_s=stats["reads"] / wall,
+                       device_bytes=_device_bytes(clf), launches={
+                           n: c for n, c in launches[name].items() if c},
+                       phase_s=dict(ph.totals))
+        print(json.dumps({"path": name, **m[name]}), flush=True)
+
+    path("host flat", flat)
+    path("host flat extended", flat, "extended")
+    mesh = Mesh([dev] * mesh_n, ("db",))
+    clf, m["load_flat_mesh_s"] = _load(dev, tmp, prof, packed=False,
+                                       mesh=mesh)
+    path("host flat mesh", clf, "plain" if sub is None else "sub")
+    del clf
+
+    # (f) a trace's kernels at its ends (utils/profiling.py): a burst in
+    # this long-lived process, where the card's stamps drift the most
+    burst = trace_burst(dev, tmp) if dev.type == "cuda" else None
+    if burst and burst["trace_kept"] != burst["launched"]:
+        raise AssertionError(f"trace burst: {burst}")
+    c3 = os.path.join(tools_dir, "c3_reads.fa")
+    c3_csv = os.path.join(tools_dir, "c3_res.csv")
+    # classify --trace-dir in this process, its kernels recorded: in a
+    # process this old a trace can lose some or all of them (PERF.md §7)
+    in_dir, in_out = os.path.join(tmp, "trace_in"), os.path.join(tmp, "tr_in")
+    rc, _ = _cli("classify", "-D", tools_dir, "-O", c3, "-R", in_out,
+                 "--trace-dir", in_dir, "--device", dev.type)
+    if rc:
+        raise AssertionError(f"host trace in process: rc {rc}")
+    _same_file("host trace in process", in_out + ".csv", c3_csv)
+    kernel_names = _trace_kernels(in_dir)[2]
+    in_process = {n: any(n in k for k in kernel_names) for n in TRACE_KERNELS}
+    # then as a user runs it: the CLI in a process of its own (cli_child,
+    # which records its launches), whose trace must name K1-K3
+    trace_dir = os.path.join(tmp, "trace")
+    out, child = os.path.join(tmp, "host_trace"), os.path.join(tmp, "child")
+    os.makedirs(child, exist_ok=True)
+    t = time.perf_counter()
+    ((rc, log),) = _cluster_procs([[
+        sys.executable, os.path.join(ROOT, "chip_smoke.py"), "cli-child",
+        child, "classify", "-D", tools_dir, "-O", c3, "-R", out,
+        "--trace-dir", trace_dir, "--device", dev.type]], [_cluster_env()])
+    wall = time.perf_counter() - t
+    if rc:
+        raise AssertionError(f"host trace: rc {rc}\n{log[-4000:]}")
+    with open(os.path.join(child, "p0.json")) as f:
+        rec = json.load(f)
+    launches["host trace"] = rec["launches"]
+    _same_file("host trace", out + ".csv", c3_csv)
+    with open(out + ".csv", "rb") as f:
+        n_reads = f.read().count(b"\n") - 1
+    n_traces, n_events, kernel_names = _trace_kernels(trace_dir)
+    names = {n: any(n in k for k in kernel_names) for n in TRACE_KERNELS}
+    if not n_events or (dev.type == "cuda" and not all(names.values())):
+        raise AssertionError(f"host trace: {n_traces} traces, {n_events} "
+                             f"events, kernels {names}: "
+                             f"{sorted(set(kernel_names))}")
+    # the process's wall holds its start and the table's load; the rate
+    # is over the CLI's wall less the load
+    load_s = sum(x["seconds"] for x in rec["loads"])
+    m["host trace"] = dict(reads=n_reads, wall_s=wall, cli_s=rec["wall_s"],
+                           load_s=load_s, reads_per_s=n_reads / (
+                               rec["wall_s"] - load_s),
+                           device_bytes=rec["loads"][0]["table_bytes"],
+                           trace_files=n_traces, trace_events=n_events,
+                           kernels_named=names,
+                           kernels_named_in_process=in_process, burst=burst,
+                           launches={n: c for n, c in
+                                     launches["host trace"].items() if c})
+    print(json.dumps({"path": "host trace", **m["host trace"]}), flush=True)
+    return m
+
+
 N_GENOMES = 16  # phase 4: bench.py config 2, 16 genomes x 3 Mbp
 
 
@@ -2505,9 +2913,11 @@ def main() -> int:
             **metrics)
 
         t = time.perf_counter()
-        timing, shape = time_kernels(dev, clf, dense_clf, fa, lens, scale_dir,
-                                     N_GENOMES)
-        _phase("5 timing", t, shape=shape, **timing)
+        # the flat path's sorted index, kept for phase 8
+        flat, load_flat_s = _load(dev, scale_dir, params.FULL, packed=False)
+        timing, shape = time_kernels(dev, clf, dense_clf, flat, fa, lens,
+                                     scale_dir, N_GENOMES)
+        _phase("5 timing", t, load_flat_s=load_flat_s, shape=shape, **timing)
 
         t = time.perf_counter()
         printed = set(launches)
@@ -2526,11 +2936,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         paths = run_cluster(dev, tmp, scale_dir, os.path.join(tmp, "tools"),
                             os.path.join(tmp, "golden0"), launches)
-        check_launches(launches)
         for rec in paths.values():
             print(json.dumps(rec), flush=True)
         _phase("7 cluster", t, launches={
             name: n for name, n in launches.items() if name not in printed})
+
+        t = time.perf_counter()
+        host = run_host_paths(dev, scale_dir, params.FULL, flat, launches,
+                              os.path.join(tmp, "tools"))
+        check_launches(launches)
+        _phase("8 host paths", t, **{key: v for key, v in host.items()
+                                     if not isinstance(v, dict)})
 
     record = {"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
@@ -2587,6 +3003,10 @@ PATH_KERNELS = {
     "cluster sharded": {"window_canonicals", "probe_chunk", *_SMALL},
     "cluster sharded one process": {"window_canonicals", "probe_chunk",
                                     "top2"},
+    "host flat": {"lookup", "counts_flat"},
+    "host flat extended": {"lookup", "counts_flat"},
+    "host flat mesh": {"lookup", "counts_flat"},
+    "host trace": {"window_canonicals", "probe", *_SMALL},
 }
 
 
@@ -2602,6 +3022,6 @@ def check_launches(launches: dict):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["cluster-child"]:  # a process of phase 7
-        sys.exit(cluster_child(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["cli-child"]:  # a process of phase 7 or 8
+        sys.exit(cli_child(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -18,7 +18,8 @@ Classification (single-end, paired-end, --extended, list mode with
 the reads over N devices, `-d N --shard-db` splits the table's rows (which
 composes with --db-cycles), and `--dp M` with --shard-db does both on an
 M x N/M mesh.  `--device` picks cuda (the first N cards; N more than the
-machine has raises) or cpu (N CPU shards).  abundance, merge and report
+machine has raises) or cpu (N CPU shards); `--trace-dir DIR` writes a
+torch.profiler trace of the run to DIR.  abundance, merge and report
 run on the host; verify runs a toy batch through K1-K3 on `--device`.
 `cluster -c CONF` runs a cluster config: its samples one after another
 (backend local), or one process per host over torch.distributed (backend
@@ -33,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gzip
 import os
 import sys
@@ -203,10 +205,14 @@ def _cmd_classify(args):
 
         from .utils import profiling
 
+        traced = functools.partial(profiling.trace, args.trace_dir,
+                                   cuda=clf.device.type == "cuda")
         if args.jobs > 1 and len(jobs) > 1 and not args.profile:
             # concurrent list mode (cycle-outer when the table is cycled)
-            for (obj, _, _), stats in zip(jobs, clf.classify_files(
-                    jobs, jobs=args.jobs, extended=args.extended)):
+            with traced():
+                stats_list = clf.classify_files(jobs, jobs=args.jobs,
+                                                extended=args.extended)
+            for (obj, _, _), stats in zip(jobs, stats_list):
                 # cycle-outer runs interleave the samples in each table
                 # pass: seconds and rate are the whole batch's
                 agg = " [whole batch]" if stats.get("aggregate") else ""
@@ -217,24 +223,28 @@ def _cmd_classify(args):
                     file=sys.stderr,
                 )
             return 0
-        for obj, mate, res in jobs:
-            print(f"Classifying: {obj}", file=sys.stderr)
-            ctx = profiling.collect() if args.profile else contextlib.nullcontext()
-            with ctx as phases:
-                stats = clf.classify_file(obj, res, paired_path=mate,
-                                          extended=args.extended)
-            if args.verbose and stats.get("hit_stats") is not None:
-                # distinct-targets-hit distribution, as the reference prints
-                # after its extended writer (CuCLARK_hh.hh:2064-2067)
-                print(stats["hit_stats"].report(), file=sys.stderr)
-            print(
-                f"Done in {stats['seconds']:.1f}s "
-                f"({stats['reads_per_min']} reads/min, {stats['reads']} reads)",
-                file=sys.stderr,
-            )
-            print(f"Results: {stats['result']}", file=sys.stderr)
-            if phases is not None:
-                print(phases.summary(), file=sys.stderr)
+        with traced():
+            for obj, mate, res in jobs:
+                print(f"Classifying: {obj}", file=sys.stderr)
+                ctx = (profiling.collect() if args.profile
+                       else contextlib.nullcontext())
+                with ctx as phases:
+                    stats = clf.classify_file(obj, res, paired_path=mate,
+                                              extended=args.extended)
+                if args.verbose and stats.get("hit_stats") is not None:
+                    # distinct-targets-hit distribution, as the reference
+                    # prints after its extended writer
+                    # (CuCLARK_hh.hh:2064-2067)
+                    print(stats["hit_stats"].report(), file=sys.stderr)
+                print(
+                    f"Done in {stats['seconds']:.1f}s "
+                    f"({stats['reads_per_min']} reads/min, "
+                    f"{stats['reads']} reads)",
+                    file=sys.stderr,
+                )
+                print(f"Results: {stats['result']}", file=sys.stderr)
+                if phases is not None:
+                    print(phases.summary(), file=sys.stderr)
     return 0
 
 
@@ -727,6 +737,9 @@ def build_parser() -> argparse.ArgumentParser:
                     "mesh's devices")
     pc.add_argument("--profile", action="store_true",
                     help="print phase timing summary")
+    pc.add_argument("--trace-dir", default=None,
+                    help="capture a torch.profiler trace (a Chrome trace "
+                    "of the host's ops and, on cuda, the kernels) into DIR")
     pc.set_defaults(fn=cmd_classify)
 
     pa = sub.add_parser("abundance", help="abundance estimation from result CSVs")

@@ -32,8 +32,22 @@ table's rows over the mesh (each shard's range optionally cycled), "dp"
 puts the table on every device and splits each batch's rows, and a
 two-axis mesh does both.  A mesh across processes (db mode only) ends each
 batch in collectives that every process issues in one order, so such a
-Classifier takes one classify call at a time.  The flat path raises
-NotImplementedError.
+Classifier takes one classify call at a time.
+
+packed=False takes the flat sorted-array path instead of the radix table:
+the DB's keys sorted on the device (ops/lookup.py), each batch's canonical
+windows computed on the host with numpy (io/fasta.parse_reads,
+`flat_queries`), searched by K9 and scored by K5's flat form
+(`_query_single`; over a one-axis mesh, parallel/mesh.shard_index), each
+row formatted in Python (`_format_row`, byte-identical to the native
+formatter).
+
+Every other path runs the native host runtime, and a native runtime that
+fails to build raises.  The JAX package's `use_native=False` (its numpy
+fallback) and `BatchPlan.sort_batches` / `sort_window_batches` (its
+length-bucketed planner) are accepted and change nothing: the port plans
+resident batches in file order, which wrote the same CSV faster on the
+card, and needs no fallback for a runtime it always builds.
 """
 
 from __future__ import annotations
@@ -42,6 +56,7 @@ import bisect
 import collections
 import contextlib
 import dataclasses
+import functools
 import itertools
 import os
 import queue
@@ -55,13 +70,17 @@ import torch
 
 from .io import dbformat
 from .io.fasta import (
+    ReadSet,
     iter_merged_slabs,
     iter_record_cuts,
     iter_record_slabs,
     merge_paired,
+    parse_reads,
+    window_starts,
 )
 from .io.targets import TargetsDef, parse_targets
-from .ops import device_pipeline, radix_table
+from .kmer import canonical_u64, window_values_le
+from .ops import device_pipeline, lookup, pack, radix_table, score
 from .params import NBN, Profile
 from .utils import memory, native
 from .utils.profiling import maybe_phase
@@ -82,21 +101,20 @@ STAGING_SLICE_BYTES = 64 << 20
 class BatchPlan:
     """Batch shapes and pipeline depth of the device step."""
 
+    max_queries: int = 1 << 20  # flat path: queries (windows) per batch
     max_reads: int = 1 << 16  # reads per batch
     window_budget: int = 1 << 23  # R*stride char slots per batch
     pipeline_depth: int = 6  # batches packed and dispatched ahead of the fetch
     scan_chunk_bytes: int = 8 << 20  # streamed-scan granularity: the record
     # scan runs in a background thread in chunks of this size, so the first
     # batch dispatches after ~one chunk's scan instead of the whole input's
-    sort_window_batches: int = 8  # length-bucketed planning window in
-    # batches: reads of a window are grouped by stride tier (stable within a
-    # tier) so mixed-length inputs pack into dense same-stride batches; the
-    # window is also the result-reorder granularity
+    sort_window_batches: int = 8  # the JAX package's; unused (file order)
     cycle_strategy: str = "auto"  # out-of-core accumulation: "counts"
     # keeps dense [R, T+1] per batch on the host (small for few targets);
     # "labels" keeps each cycle's per-window labels [R, W] (target-count
     # independent) and scores the concatenated cycles once; "auto" picks
     # whichever holds fewer bytes
+    sort_batches: bool = True  # the JAX package's; unused (file order)
 
 
 def _stride_tiers(lengths: np.ndarray) -> np.ndarray:
@@ -307,12 +325,14 @@ def _resolve_device(device) -> torch.device:
 class Classifier:
     """CLARK classifier: the radix table resident on one device (standard
     or dense layout) or streamed from the host in cycles, or spread over
-    the devices of a mesh (parallel/mesh.py)."""
+    the devices of a mesh (parallel/mesh.py); with packed=False the flat
+    sorted index instead, on one device or over a one-axis mesh."""
 
     dense_table = None  # the host DenseTable when the dense layout engaged
     sharded = None  # the ShardedRadixTable of a db mesh
     shards = None  # a dp or dp x db mesh's tables on its devices
     _mesh_step = None  # the batch step of a dp or dp x db mesh
+    keys = labels1 = None  # the flat path's sorted index (blocks on a mesh)
 
     def __init__(
         self,
@@ -330,12 +350,8 @@ class Classifier:
         mesh=None,
         packed: bool = True,
         mesh_mode: str = "dp",
+        use_native: bool = True,
     ):
-        if not packed:
-            raise NotImplementedError(
-                "the flat sorted-array path (packed=False) is not ported: "
-                "ROADMAP lists it under 'Do not port'"
-            )
         if mesh_mode not in ("dp", "db"):
             raise ValueError(f"mesh_mode must be 'dp' or 'db', got "
                              f"{mesh_mode!r}")
@@ -351,6 +367,7 @@ class Classifier:
         _check_label_range(labels, prebuilt_table, self.n_targets)
         self.plan = plan or BatchPlan()
         self.mesh = mesh
+        self.packed, self.use_native = packed, use_native
         if mesh is None:
             self.device = _resolve_device(device)
         else:
@@ -374,6 +391,9 @@ class Classifier:
         self._one_call = (threading.Lock() if mesh is not None
                           and mesh.collective else None)
 
+        if not packed:
+            self._load_flat(canonical, labels)
+            return
         if mesh is not None and mesh_mode == "db":
             # the table's rows sharded over the mesh, each shard's range
             # optionally cycled; planned and filled from the raw keys
@@ -478,6 +498,23 @@ class Classifier:
             return
         self.table = radix_table.to_device(table, self.device)
 
+    def _load_flat(self, canonical, labels):
+        """The flat path's sorted index (lookup.prepare_index; labels + 1)
+        on the device, or its blocks over a one-axis mesh."""
+        keys, labels1 = lookup.prepare_index(canonical, labels)
+        self.table = None
+        self.db_cycles = 1  # the index stays resident: cycles do not apply
+        if self.mesh is not None:
+            from .parallel.mesh import shard_index
+
+            self.keys, self.labels1, self.query_fn = shard_index(
+                self.mesh, keys, labels1, self.n_targets)
+            return
+        self.keys = _to_dev(keys, self.device)
+        self.labels1 = torch.from_numpy(labels1).to(self.device)
+        self.query_fn = functools.partial(_query_single,
+                                          n_targets=self.n_targets)
+
     def _transient_bytes(self) -> int:
         """Device bytes of the batches in flight (utils/memory.py)."""
         counts = min(DENSE_COUNTS_BYTES,
@@ -571,6 +608,7 @@ class Classifier:
         mesh=None,
         packed: bool = True,
         mesh_mode: str = "dp",
+        use_native: bool = True,
     ) -> "Classifier":
         if isinstance(targets, str):
             targets = parse_targets(targets)
@@ -597,8 +635,9 @@ class Classifier:
             )
         # device-index cache: keyed on a content signature of the DB files;
         # valid only for unsampled loads (sampling changes the key set).  A
-        # db mesh plans and fills its shards from the raw keys
-        use_cache = sampling_factor == 1 and not (
+        # db mesh plans and fills its shards from the raw keys, and the
+        # flat path sorts them
+        use_cache = packed and sampling_factor == 1 and not (
             mesh is not None and mesh_mode == "db")
         cache = stem + ".idx.npz"
         table = None
@@ -630,6 +669,7 @@ class Classifier:
             mesh=mesh,
             packed=packed,
             mesh_mode=mesh_mode,
+            use_native=use_native,
         )
 
     # -------------------------------------------------------------- classify
@@ -642,8 +682,13 @@ class Classifier:
         lines).  `hit_stats` (extended runs only) accumulates the
         reference's MIN/MAX/AVG distinct-targets-hit report.  On a process
         mesh the rows generator holds the Classifier's one call from its
-        first row to its last."""
-        if self.db_cycles > 1:
+        first row to its last.  The flat path (packed=False) parses the
+        input with numpy; every other path runs the native host runtime."""
+        if not self.packed:
+            rs = parse_reads(data)
+            rows = self._classify_flat(rs, paired, extended, hit_stats)
+            n_reads = rs.n_reads
+        elif self.db_cycles > 1:
             with maybe_phase("scan"):
                 _, ns, ne, ss, se, ln = native.scan_reads(data)
             rows = self._classify_cycled_native(
@@ -718,7 +763,7 @@ class Classifier:
         # thread while slab i classifies; the record scan itself streams
         # inside _classify_native.  The cycled path wants whole-slab
         # arrays, so slab i+1 is also scanned in that thread.
-        cycled = self.db_cycles > 1
+        cycled = self.packed and self.db_cycles > 1
 
         def stage(slab):
             if not cycled:
@@ -734,7 +779,12 @@ class Classifier:
         with open(out, "wb") as f:
             f.write(self._header(extended))
             for slab, scn in scanned:
-                if cycled:
+                scan = None
+                if not self.packed:
+                    rs = parse_reads(slab)
+                    gen = self._classify_flat(rs, paired, extended, hs)
+                    nr = rs.n_reads
+                elif cycled:
                     _, ns, ne, ss, se, ln = scn
                     gen = self._classify_cycled_native(
                         slab, ns, ne, ss, se, ln, paired, extended, hs)
@@ -745,7 +795,7 @@ class Classifier:
                                                 extended, hs)
                 for chunk in gen:
                     f.write(chunk)
-                n_reads += nr if cycled else scan.total()
+                n_reads += nr if scan is None else scan.total()
         dt = time.time() - t0
         stats = {
             "reads": n_reads,
@@ -893,6 +943,15 @@ class Classifier:
 
         return packer, formatter
 
+    def _format_rows(self, names, total, ib, b, sb, norm, counts) -> bytes:
+        """`_format_row` over a run of reads (counts: their dense [n, T+1]
+        rows, or None)."""
+        return b"".join(
+            _format_row(name, int(total[i]), int(ib[i]), int(b[i]),
+                        int(sb[i]), int(norm[i]), self.k, self.target_names,
+                        None if counts is None else counts[i])
+            for i, name in enumerate(names))
+
     def _classify_cycled_native(self, data, ns, ne, ss, se, lengths, paired,
                                 extended, hit_stats=None):
         """Cycle-outer / batch-inner classification of one input: every
@@ -934,8 +993,7 @@ class Classifier:
         capped to DENSE_COUNTS_BYTES."""
         max_reads = self.plan.max_reads
         if strategy == "counts" or extended:
-            max_reads = min(max_reads, max(
-                DENSE_COUNTS_BYTES // (4 * (self.n_targets + 1)), 1))
+            max_reads = self._dense_rows(max_reads)
         lengths = np.asarray(lengths)
         specs = self._window_specs(_stride_tiers(lengths), max_reads)
         packed, pcs = [], []
@@ -945,6 +1003,12 @@ class Classifier:
                 packed.append(_pad_batch(words, vwords, r_pad))
             pcs.append(self._probe_cols(lengths[idx].max(initial=1), stride))
         return specs, packed, pcs
+
+    def _dense_rows(self, max_reads: int) -> int:
+        """max_reads capped so that a batch's dense [R, T+1] counts fit
+        DENSE_COUNTS_BYTES."""
+        return min(max_reads, max(
+            DENSE_COUNTS_BYTES // (4 * (self.n_targets + 1)), 1))
 
     def _run_passes(self, strategy, inputs):
         """One pass per table chunk over every input's batches; inputs are
@@ -1193,16 +1257,13 @@ class Classifier:
                          extended=False, hit_stats: HitStats | None = None):
         """Host side fully in C++ (scan/pack/format), device step in torch.
 
-        Length-bucketed: reads of each planning window are grouped by stride
-        tier into dense batches; per-read results scatter back into window
-        order and each window formats with ONE native call, so the CSV is
-        byte-identical to file-order planning."""
+        Batches of consecutive reads in file order (`_plan_batches_stream`,
+        which waits only for the reads of the batch it emits), each at its
+        longest read's stride tier; each batch formats with one native call
+        as soon as it is fetched."""
         k = self.k
         dev = self.device
         nbn = NBN if paired else 0
-        # extended: one batch per planning window, so a window's extended
-        # columns (a read's sorted labels or dense counts) stay one batch's
-        wb = 1 if extended else self.plan.sort_window_batches
         # extended columns from the device's sorted label grid (O(windows)
         # on the device and ~2 B per window fetched) while label+1 fits
         # u16; dense [R, T+1] counts at 65,535 targets
@@ -1210,55 +1271,27 @@ class Classifier:
         ext_mode = "sorted" if ext_runs else extended
         max_reads = self.plan.max_reads
         if extended and not ext_runs:
-            max_reads = min(max_reads, max(
-                DENSE_COUNTS_BYTES // (4 * (self.n_targets + 1)), 1))
+            max_reads = self._dense_rows(max_reads)
         n_targets = self.n_targets if extended else 0
 
-        def flat_batches():
-            wid = 0
-            for item in self._plan_hybrid_stream(scan, wb, max_reads):
-                if item[0] == "direct":
-                    yield ("d",) + item[1:]
-                    continue
-                _, w0, arrs, specs = item
-                lens = arrs[4]
-                pcs = [
-                    self._probe_cols(lens[idx].max(initial=1), stride)
-                    for idx, stride, _ in specs
-                ]
-                max_w = max(pcs)
-                for (idx, stride, r_pad), pc in zip(specs, pcs):
-                    yield ("w", wid, arrs, len(specs), idx, stride, r_pad,
-                           pc, max_w)
-                wid += 1
-
-        def dispatch(item):
-            if item[0] == "d":
-                _, r0, r1, stride, r_cap = item
-                ns, ne, ss, se, ln = scan.arrays(r0, r1)
-                pc = self._probe_cols(ln.max(initial=1), stride)
-                r_pad = _pad_rows(r1 - r0, r_cap)
-                meta = ("d", (ns, ne, ln), r1 - r0)
-            else:
-                _, wid, arrs, n_specs, idx, stride, r_pad, pc, max_w = item
-                ss, se = arrs[2][idx], arrs[3][idx]
-                meta = ("w", wid, arrs, n_specs, idx, max_w)
+        def dispatch(spec):
+            r0, r1, stride, _ = spec
+            ns, ne, ss, se, ln = scan.arrays(r0, r1)
+            pc = self._probe_cols(ln.max(initial=1), stride)
             with maybe_phase("pack"):
                 words, vwords = native.pack_batch(data, ss, se, stride)
-                words, vwords = _pad_batch(words, vwords, r_pad)
             with maybe_phase("dispatch"):
                 total, ib, b, sb, extra = self.batch_fn(
                     _to_dev(words, dev), _to_dev(vwords, dev),
-                    extended=ext_mode,
-                    probe_cols=pc,
-                )
-                return meta, torch.stack([total, ib, b, sb]), extra
+                    extended=ext_mode, probe_cols=pc)
+                return (ns, ne, ln), torch.stack([total, ib, b, sb]), extra
 
         def fetch(entry):
             # every launch and copy goes to the device's current (default)
-            # stream, so these blocking copies also wait for the kernels
+            # stream, so these blocking copies also wait for the kernels;
+            # a mesh's batch_fn may return pad rows past the batch's own
             meta, res, extra = entry
-            nb = meta[2] if meta[0] == "d" else len(meta[4])
+            nb = len(meta[2])
             with maybe_phase("device_wait"):
                 res = res[:, :nb].cpu().numpy()
                 extra = extra[:nb].cpu().numpy() if extended else None
@@ -1266,62 +1299,52 @@ class Classifier:
                 extra = extra.view(np.uint16)
             return meta, res, extra
 
-        def hits(extra):
-            if hit_stats is not None:
+        entries = self._pipelined(self._plan_batches_stream(scan, max_reads),
+                                  dispatch)
+        for (ns, ne, ln), res, extra in self._pipelined_pool(
+                entries, fetch, workers=2, depth=2):
+            if extended and hit_stats is not None:
                 if ext_runs:
                     hit_stats.update_runs(extra)
                 else:
                     hit_stats.update_counts(extra)
-
-        def fmt(ns, ne, ln, res, extra):
             with maybe_phase("format"):
-                return native.format_rows(
+                yield native.format_rows(
                     data, ns, ne, *res, ln - nbn, k, self.names,
                     counts=extra if extended and not ext_runs else None,
                     sorted_runs=extra if ext_runs else None,
                     n_targets=n_targets,
                 )
 
-        acc: dict[int, dict] = {}
-        entries = self._pipelined(flat_batches(), dispatch)
-        for meta, res, extra in self._pipelined_pool(entries, fetch,
-                                                     workers=2, depth=2):
-            if meta[0] == "d":
-                _, (ns, ne, ln), nb = meta
-                if extended:
-                    hits(extra)
-                yield fmt(ns, ne, ln, res, extra)
-                continue
-            _, wid, arrs, n_specs, idx, max_w = meta
-            st = acc.get(wid)
-            if st is None:
-                n_win = len(arrs[4])
-                if ext_runs:
-                    ext = np.zeros((n_win, max_w), np.uint16)
-                elif extended:
-                    ext = np.zeros((n_win, self.n_targets + 1), np.int32)
-                else:
-                    ext = None
-                st = acc[wid] = dict(
-                    remaining=n_specs,
-                    res=np.zeros((4, n_win), np.int32),
-                    extra=ext,
-                )
-            st["res"][:, idx] = res
-            if ext_runs:
-                # right-align narrower tiers: the pad zeros land BEFORE the
-                # row's own (ascending, zeros-first) labels, keeping every
-                # row ascending for the run expander
-                st["extra"][idx, max_w - extra.shape[1]:] = extra
-            elif extended:
-                st["extra"][idx] = extra
-            st["remaining"] -= 1
-            if st["remaining"] == 0:
-                del acc[wid]
-                ns, ne, _, _, ln = arrs
-                if extended:
-                    hits(st["extra"])
-                yield fmt(ns, ne, ln, st["res"], st["extra"])
+    # ------------------------------------------------------ the flat path
+    def _classify_flat(self, rs: ReadSet, paired: bool, extended: bool,
+                       hit_stats=None):
+        """The flat sorted-array path (packed=False): every counted
+        window's canonical value on the host (numpy), then a batch at a
+        time the search K9 and K5's flat form (`query_fn`), and the Python
+        format.  A batch holds at most max_queries windows and max_reads
+        reads (capped to DENSE_COUNTS_BYTES of counts); a read of more
+        windows than max_queries raises."""
+        qvals, rid, woff = flat_queries(rs, self.k)
+        norm = rs.read_lengths - (NBN if paired else 0)
+        names = [rs.name(i) for i in range(rs.n_reads)]
+        dev = self.device
+        for r0, r1 in flat_read_cuts(woff, self.plan.max_queries,
+                                     self._dense_rows(self.plan.max_reads)):
+            q0, q1, nb = int(woff[r0]), int(woff[r1]), r1 - r0
+            with maybe_phase("dispatch"):
+                total, ib, b, sb, counts = self.query_fn(
+                    self.keys, self.labels1, _to_dev(qvals[q0:q1], dev),
+                    torch.from_numpy((rid[q0:q1] - r0).astype(np.int32)).to(
+                        dev), n_reads=nb)
+            with maybe_phase("device_wait"):
+                res = torch.stack([total, ib, b, sb]).cpu().numpy()
+                counts = counts.cpu().numpy() if extended else None
+            if hit_stats is not None and extended:
+                hit_stats.update_counts(counts)
+            with maybe_phase("format"):
+                yield self._format_rows(names[r0:r1], *res, norm[r0:r1],
+                                        counts)
 
     # --------------------------------------------------- threaded pipelining
     def _pipelined_pool(self, items, fn, workers: int, depth: int):
@@ -1399,7 +1422,36 @@ class Classifier:
             stop.set()
             t.join()
 
-    # ----------------------------------------------- length-bucketed planning
+    # ------------------------------------------------ file-order planning
+    def _plan_batches_stream(self, scan: _ScanStream, max_reads: int):
+        """Consecutive batches (r0, r1, stride, r_cap) in file order, the
+        JAX package's `_plan_batches` decisions over a streaming scan: a
+        batch's stride is the tier of its longest read, widened until its
+        r_cap = min(max_reads, window_budget // stride) reads fit; it waits
+        only until the batch about to be emitted is scanned."""
+        budget = self.plan.window_budget
+        r0 = 0
+        while True:
+            if scan.ensure(r0 + 1) <= r0:
+                return
+            (first_len,) = scan.arrays(r0, r0 + 1)[4]
+            stride = pack.quantized_stride(max(int(first_len), 1))
+            if stride > budget:
+                raise RuntimeError(
+                    f"read of length {first_len} exceeds window budget "
+                    f"{budget}")
+            r_cap = max(min(max_reads, budget // stride), 1)
+            while True:
+                r1 = min(r0 + r_cap, scan.ensure(r0 + r_cap))
+                s2 = pack.quantized_stride(int(scan.arrays(r0, r1)[4].max()))
+                if s2 <= stride:
+                    break
+                stride = s2
+                r_cap = max(min(max_reads, budget // stride), 1)
+            yield r0, r1, stride, r_cap
+            r0 = r1
+
+    # ------------------------------------- length-bucketed planning (cycled)
     def _window_specs(self, tiers: np.ndarray, max_reads: int):
         """Window-relative batch specs [(idx, stride, r_pad)]: reads grouped
         by stride tier (np.unique ascending; original order preserved within
@@ -1419,54 +1471,80 @@ class Classifier:
                 specs.append((chunk, t, _pad_rows(len(chunk), r_cap)))
         return specs
 
-    def _plan_hybrid_stream(self, scan: _ScanStream, window_batches: int,
-                            max_reads: int):
-        """Adaptive streaming planner.  While the stream is single-tier it
-        yields ("direct", r0, r1, stride, r_cap) file-order contiguous
-        batches, so dispatch stays scan-paced.  When a candidate batch mixes
-        tiers it yields ("window", w0, arrs, specs) length-bucketed windows
-        of ~window_batches' worth of padded chars, packed into dense
-        same-stride batches."""
-        budget = self.plan.window_budget
-        wbudget = budget * max(window_batches, 1)
-        CH = 1 << 14
-        r0 = 0
-        while True:
-            if scan.ensure(r0 + 1) <= r0:
-                return
-            (first_len,) = scan.arrays(r0, r0 + 1)[4]
-            t0 = int(_stride_tiers(np.array([first_len]))[0])
-            if t0 > budget:
-                raise RuntimeError(
-                    f"read of length ~{first_len} exceeds window budget "
-                    f"{budget}"
-                )
-            r_cap = max(min(max_reads, budget // t0), 1)
-            avail = scan.ensure(r0 + r_cap)
-            r1 = min(r0 + r_cap, avail)
-            tiers = _stride_tiers(scan.arrays(r0, r1)[4])
-            if np.all(tiers == t0):
-                yield "direct", r0, r1, t0, r_cap
-                r0 = r1
-                continue
-            w1, cost, parts = r0, 0, []
-            while cost < wbudget:
-                avail = scan.ensure(w1 + CH)
-                take = min(avail, w1 + CH)
-                if take == w1:
-                    break
-                t = _stride_tiers(scan.arrays(w1, take)[4])
-                cum = np.cumsum(t, dtype=np.int64) + cost
-                if cum[-1] >= wbudget:
-                    cut = int(np.searchsorted(cum, wbudget, side="left")) + 1
-                    cut = min(cut, len(t))
-                    parts.append(t[:cut])
-                    w1 += cut
-                    break
-                parts.append(t)
-                cost = int(cum[-1])
-                w1 = take
-            tiers = np.concatenate(parts)
-            yield ("window", r0, scan.arrays(r0, w1),
-                   self._window_specs(tiers, max_reads))
-            r0 = w1
+
+def flat_queries(rs: ReadSet, k: int):
+    """The flat path's host front end: (qvals [n] u64, the canonical value
+    of every counted window in read order; rid [n], each window's read;
+    woff [R+1], read r's windows at qvals[woff[r]:woff[r+1]])."""
+    starts, rid = window_starts(rs, k)
+    codes = np.where(rs.codes >= 0, rs.codes, 0).astype(np.int8)
+    qvals = canonical_u64(window_values_le(codes, k, starts), k)
+    woff = np.concatenate([[0], np.cumsum(np.bincount(
+        rid, minlength=rs.n_reads))])
+    return qvals, rid, woff
+
+
+def flat_read_cuts(woff: np.ndarray, max_queries: int, max_reads: int):
+    """The flat path's batches (r0, r1) of consecutive reads: at most
+    max_reads reads and max_queries windows each; raises RuntimeError for
+    a read of more windows than max_queries."""
+    n_reads = len(woff) - 1
+    r0 = 0
+    while r0 < n_reads:
+        r1 = min(r0 + max_reads, n_reads)
+        if woff[r1] - woff[r0] > max_queries:
+            r1 = int(np.searchsorted(woff, woff[r0] + max_queries,
+                                     side="right")) - 1
+            r1 = min(max(r1, r0 + 1), n_reads)
+        nq = int(woff[r1] - woff[r0])
+        if nq > max_queries:
+            raise RuntimeError(
+                f"single read exceeds query budget ({nq} > {max_queries}); "
+                "increase BatchPlan.max_queries")
+        yield r0, r1
+        r0 = r1
+
+
+def _format_row(name: bytes, total: int, index_best: int, best: int,
+                s_best: int, norm: int, k: int, target_names: list[str],
+                counts_row: np.ndarray | None) -> bytes:
+    """One CSV row as the native formatter writes it: Gamma and Confidence
+    in doubles with C's %g, as CuCLARK_hh.hh:2042-2051 computes them."""
+    denom = float(norm) - k + 1.0
+    if denom == 0.0:
+        # C prints 0.0/0.0 as "-nan" (glibc); match it byte-for-byte
+        return _format_row_nan(name, best, target_names, counts_row)
+    gamma = float(total) / denom
+    delta = float(best + s_best)
+    conf = 0.0 if delta < 0.001 else float(best) / delta
+    ext = b""
+    if counts_row is not None:
+        # columns 1..T of the dense count matrix
+        ext = b"".join(b",%d" % int(c) for c in counts_row[1:])
+    return b"%s%s,%s,%s,%u,%s\n" % (
+        name, ext, _g(gamma), target_names[index_best].encode(), best,
+        _g(conf))
+
+
+def _format_row_nan(name, best, target_names, counts_row) -> bytes:
+    ext = b""
+    if counts_row is not None:
+        ext = b"".join(b",%d" % int(c) for c in counts_row[1:])
+    return b"%s%s,-nan,%s,%u,0\n" % (name, ext, target_names[0].encode(), best)
+
+
+def _g(x: float) -> bytes:
+    """C printf %g formatting (Python's %g matches)."""
+    return b"%g" % x
+
+
+def _query_single(keys, labels1, q, qread, *, n_targets: int, n_reads: int):
+    """One flat batch on one device: the search K9 of queries q [Q] int64
+    (u64 bits) in the sorted index, then K5's flat form over the reads
+    qread [Q] int32 in [0, n_reads).  Returns (total, ibest, best, sbest,
+    counts [n_reads, T+1]), as the JAX package's _query_single does."""
+    with torch.inference_mode():
+        lab = lookup.lookup_labels(keys, labels1, q)
+        counts, total, ib, b, _, sb = score.counts_flat(lab, qread, n_reads,
+                                                        n_targets)
+        return total, ib, b, sb, counts

@@ -1,6 +1,6 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-`classify.cu` (K1-K5, K7, K8, the classify path) and `aggregate.cu` (K6, the DB
+`classify.cu` (K1-K5, K7-K9, the classify paths) and `aggregate.cu` (K6, the DB
 build) are each compiled by `nvcc` for `sm_90a` into a shared library with
 a plain C interface at first use (utils/build.py) and bound with ctypes:
 pointers come from `tensor.data_ptr()` and the stream from torch's current
@@ -15,7 +15,8 @@ kernel.  Nothing falls back to the plain-PyTorch twins: those live beside
 the public functions (device_pipeline.window_canonicals_plain,
 radix_table.probe_plain, probe_chunk_plain, probe_dense_plain,
 score.top2_from_labels_plain, score.sort_top2_plain,
-score.counts_from_hits_plain + read_results_plain,
+score.counts_from_hits_plain + read_results_plain (K5, grid and flat
+forms), lookup.lookup_labels_plain,
 db.device_build.aggregate_bucketed_plain, which runs K6's level plan,
 ops/bucket_plan.py, with each launch's twin) and run only for CPU tensors.
 """
@@ -63,7 +64,8 @@ AGG_TILE = 4096  # K6's compaction: places a tile (aggregate.cu's TILE)
 # a launch of K3 also counts under "top2 <form>", the form it took
 LAUNCHES = {"window_canonicals": 0, "probe": 0, "top2": 0, "sort_top2": 0,
             "counts_top2": 0, "aggregate": 0, "probe_chunk": 0,
-            "probe_dense": 0, **{f"top2 {f}": 0 for f in TOP2_FORMS}}
+            "probe_dense": 0, "lookup": 0, "counts_flat": 0,
+            **{f"top2 {f}": 0 for f in TOP2_FORMS}}
 _count_lock = threading.Lock()
 _libs: dict = {}
 _load_lock = threading.Lock()
@@ -122,6 +124,8 @@ def _bind(name: str, lib):
             "launch_sort_top2": [p, i64, i64, i32, p, p, p, p, p, p, p],
             "launch_counts_top2": [p, i64, i64, i32, i32, p, p, p, p, p, p,
                                    p],
+            "launch_lookup": [p, p, i64, p, p, i64, p],
+            "launch_counts_flat": [p, p, i64, i64, i32, p, p, p, p, p, p, p],
         },
         "aggregate": {
             "launch_agg_range": [p, i64, p, p],
@@ -501,6 +505,55 @@ def counts_top2(lab: torch.Tensor, n_targets: int):
             lab.data_ptr(), R, W, n_targets + 1, form, counts.data_ptr(),
             total.data_ptr(), ibest.data_ptr(), best.data_ptr(),
             isbest.data_ptr(), sbest.data_ptr())
+    return counts, total, ibest, best, isbest, sbest
+
+
+def lookup(keys: torch.Tensor, labels1: torch.Tensor,
+           q: torch.Tensor) -> torch.Tensor:
+    """K9: [Q] int32, the label + 1 of each query q [Q] int64 (u64 bits)
+    in the sorted index keys [N] int64 (u64 bits, ascending as u64),
+    labels1 [N] int32; 0 on a miss or for the pad query 2^64 - 1."""
+    dev = q.device
+    _check("keys", keys, torch.int64, 1, dev)
+    _check("labels1", labels1, torch.int32, 1, dev)
+    _check("q", q, torch.int64, 1, dev)
+    if labels1.shape != keys.shape:
+        raise ValueError(f"keys {tuple(keys.shape)} and labels1 "
+                         f"{tuple(labels1.shape)} must have one length")
+    lib = load()
+    out = torch.empty(q.shape[0], dtype=torch.int32, device=dev)
+    _launch(lib, lib.launch_lookup, "lookup", dev, keys.data_ptr(),
+            labels1.data_ptr(), keys.shape[0], q.data_ptr(), out.data_ptr(),
+            q.shape[0])
+    return out
+
+
+def counts_flat(labels1: torch.Tensor, read_id: torch.Tensor, n_reads: int,
+                n_targets: int):
+    """K5's flat form: (counts, total, ibest, best, isbest, sbest) of flat
+    per-query labels1 [Q] int32 (label + 1 in [0, T]; 0 = miss) and
+    read_id [Q] int32 in [0, n_reads): counts [n_reads, T+1] int32 (column
+    0 the misses) and read_results' top two over columns 1..T, each
+    [n_reads] int32."""
+    dev = labels1.device
+    _check("labels1", labels1, torch.int32, 1, dev)
+    _check("read_id", read_id, torch.int32, 1, dev)
+    check_targets(n_targets)
+    if read_id.shape != labels1.shape or n_reads < 0:
+        raise ValueError(f"labels1 {tuple(labels1.shape)}, read_id "
+                         f"{tuple(read_id.shape)} and {n_reads} reads do not "
+                         "fit")
+    lib = load()
+    counts = torch.empty((n_reads, n_targets + 1), dtype=torch.int32,
+                         device=dev)
+    outs = torch.empty((5, n_reads), dtype=torch.int32, device=dev)
+    total, ibest, best, isbest, sbest = outs
+    # the zeroing, the scatter and the top-2 count as one launch
+    _launch(lib, lib.launch_counts_flat, "counts_flat", dev,
+            labels1.data_ptr(), read_id.data_ptr(), labels1.shape[0],
+            n_reads, n_targets + 1, counts.data_ptr(), total.data_ptr(),
+            ibest.data_ptr(), best.data_ptr(), isbest.data_ptr(),
+            sbest.data_ptr())
     return counts, total, ibest, best, isbest, sbest
 
 

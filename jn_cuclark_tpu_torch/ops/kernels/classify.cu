@@ -12,9 +12,13 @@
 //   K4 sort_top2          device_pipeline.py:155 score_from_labels(extended=
 //                         "sorted"): K3 plus each read's sorted label row
 //   K5 counts_top2        score.py:17 counts_from_hits + :85 read_results
-//                         (device_pipeline.py:159 score_from_labels(True))
+//                         (device_pipeline.py:159 score_from_labels(True));
+//                         its flat form counts_flat takes per-query labels
+//                         and read ids (engine.py:2076 _query_single)
 //   K7 probe_chunk        radix_table.py:411 probe_chunk (out-of-core cycling)
 //   K8 probe_dense        radix_table.py:602 probe_dense (two-plane table)
+//   K9 lookup             lookup.py:41 lookup_labels (the flat path's
+//                         sorted-array search)
 //
 // u64 values arrive as int64 bit patterns and u32 values as int32 bit
 // patterns; the kernels read them as unsigned.  Each launcher is a plain C
@@ -22,9 +26,11 @@
 // synchronise, allocates nothing, and returns cudaGetLastError() so a
 // refused launch surfaces at once.
 //
-// Every kernel here is redesigned for the card (their notes below say what
-// bounds them and what the design does about it); K3 and K4 keep the
-// first, simple block form for rows wider than their warp forms take.  The
+// Every kernel here but K9 and K5's flat form is redesigned for the card
+// (their notes below say what bounds them and what the design does about
+// it); K3 and K4 keep the first, simple block form for rows wider than
+// their warp forms take; K9 and K5's flat form are the first, simple
+// forms.  The
 // DB-build aggregate (K6) lives in aggregate.cu.
 
 #include <cuda_runtime.h>
@@ -1850,6 +1856,84 @@ top2_hash_kernel(const int* __restrict__ lab, long long R, long long W,
   }
 }
 
+// ---------------------------------------------------------------- K9
+// Replaces ops/lookup.py:41 lookup_labels, the flat path's index search:
+// keys [N] u64 ascending, labels1 [N] (label + 1), q [Q] u64 -> out [Q],
+// the label + 1 of the key equal to q, or 0 where none is or q is the pad
+// value 2^64 - 1.  One thread a query: a lower-bound binary search over
+// the keys (unsigned compares), then one label load on a hit.
+//
+// Bound by bytes: what a batch must read is the distinct 32-B sectors of
+// keys its searches visit, a label sector a hit, q and out (chip_smoke.py
+// phase 5 counts them from this run's queries).  A search is ~log2(N)
+// dependent loads (26 at config 2's 48M keys); the top levels are shared
+// by every query and stay in L2, the last few miss it, so the kernel waits
+// on latency more than on bandwidth.  Simple by design: a copy of the top
+// levels in shared memory, or sorting the queries first so that
+// neighbouring threads share paths, is work for a redesign.
+#define K9_THREADS 256
+
+__global__ void __launch_bounds__(K9_THREADS)
+lookup_kernel(const u64* __restrict__ keys, const int* __restrict__ labels1,
+              long long n, const u64* __restrict__ q, int* __restrict__ out,
+              long long Q) {
+  long long i = (long long)blockIdx.x * K9_THREADS + threadIdx.x;
+  if (i >= Q) return;
+  u64 x = q[i];
+  int lab = 0;
+  if (x != EMPTY64) {
+    long long lo = 0, hi = n;  // the first key >= x lies in [lo, hi]
+    while (lo < hi) {
+      long long mid = lo + ((hi - lo) >> 1);
+      if (__ldg(keys + mid) < x)
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    if (lo < n && __ldg(keys + lo) == x) lab = __ldg(labels1 + lo);
+  }
+  out[i] = lab;
+}
+
+// ------------------------------------------------------- K5, flat form
+// Replaces score.py:17 counts_from_hits + :85 read_results where the flat
+// path calls them (engine.py:2076 _query_single): per-query labels1 [Q]
+// (label + 1 in [0, T]; 0 = miss) and read ids [Q] in [0, R) -> dense
+// counts [R, T+1] (column 0 the misses) and the top two over columns 1..T
+// in read_results' order.  Labels or read ids out of range are dropped.
+//
+// Bound by bytes: the two [Q] inputs read once and the [R, T+1] counts
+// written once.  The simple form: the launcher zeroes `counts`, one thread
+// a query adds with a global atomic (a read's queries lie together, and
+// most carry one label, so a warp's atomics often meet on one address:
+// that serialises in L2, and a warp-aggregated or shared-memory form is a
+// redesign's), then a warp a read scans its row's columns with K5's
+// top-2 step (warp_top2_columns).
+__global__ void __launch_bounds__(K9_THREADS)
+counts_flat_scatter_kernel(const int* __restrict__ labels1,
+                           const int* __restrict__ read_id, long long Q,
+                           long long R, int T1, int* __restrict__ counts) {
+  long long i = (long long)blockIdx.x * K9_THREADS + threadIdx.x;
+  if (i >= Q) return;
+  int v = labels1[i], r = read_id[i];
+  if ((unsigned)v < (unsigned)T1 && r >= 0 && r < R)
+    atomicAdd(&counts[(long long)r * T1 + v], 1);
+}
+
+__global__ void __launch_bounds__(K5_WARPS * 32)
+counts_flat_top2_kernel(const int* __restrict__ counts, long long R, int T1,
+                        int* __restrict__ total, int* __restrict__ ibest,
+                        int* __restrict__ best, int* __restrict__ isbest,
+                        int* __restrict__ sbest) {
+  int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  long long r = (long long)blockIdx.x * K5_WARPS + warp;
+  if (r >= R) return;  // uniform across the warp
+  int tot;
+  u64 a1, a2;
+  warp_top2_columns(counts + r * T1, T1, lane, tot, a1, a2);
+  if (lane == 0) store_top2(r, tot, a1, a2, total, ibest, best, isbest, sbest);
+}
+
 // ---------------------------------------------------------------- launchers
 static long long lmin(long long a, long long b) { return a < b ? a : b; }
 static long long lmax(long long a, long long b) { return a > b ? a : b; }
@@ -2221,6 +2305,40 @@ int launch_counts_top2(const void* lab, long long R, long long W, int T1,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// K9 over Q queries; n = 0 keys gives all misses.
+int launch_lookup(const void* keys, const void* labels1, long long n,
+                  const void* q, void* out, long long Q, void* stream) {
+  if (Q == 0) return 0;
+  long long blocks = (Q + K9_THREADS - 1) / K9_THREADS;
+  if (n < 0 || blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  lookup_kernel<<<(unsigned)blocks, K9_THREADS, 0, (cudaStream_t)stream>>>(
+      (const u64*)keys, (const int*)labels1, n, (const u64*)q, (int*)out, Q);
+  return (int)cudaGetLastError();
+}
+
+// K5's flat form: zero counts, the scatter, then the top-2 a warp a read.
+int launch_counts_flat(const void* labels1, const void* read_id, long long Q,
+                       long long R, int T1, void* counts, void* total,
+                       void* ibest, void* best, void* isbest, void* sbest,
+                       void* stream) {
+  if (R == 0) return 0;
+  long long blocks = (Q + K9_THREADS - 1) / K9_THREADS;
+  if (T1 < 1 || R > 0x7FFFFFFFLL || Q < 0 || blocks > 0x7FFFFFFFLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (cudaError_t e =
+          cudaMemsetAsync(counts, 0, (size_t)R * T1 * sizeof(int), st))
+    return (int)e;
+  if (Q > 0)
+    counts_flat_scatter_kernel<<<(unsigned)blocks, K9_THREADS, 0, st>>>(
+        (const int*)labels1, (const int*)read_id, Q, R, T1, (int*)counts);
+  counts_flat_top2_kernel<<<(unsigned)((R + K5_WARPS - 1) / K5_WARPS),
+                            K5_WARPS * 32, 0, st>>>(
+      (const int*)counts, R, T1, (int*)total, (int*)ibest, (int*)best,
+      (int*)isbest, (int*)sbest);
   return (int)cudaGetLastError();
 }
 

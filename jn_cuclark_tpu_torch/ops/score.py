@@ -7,7 +7,7 @@ with strict '>' updates, which makes (best, second best) exactly the top-2
 under the ordering (count desc, target index asc).  `indexBest` is the target
 index + 1 so 0 means "NA" (CuClarkDB.cu:1390).
 
-Three forms, each a CUDA kernel (ops/kernels/classify.cu) on CUDA tensors
+Four forms, each a CUDA kernel (ops/kernels/classify.cu) on CUDA tensors
 and its plain twin on CPU tensors:
 
   top2_from_labels  K3  per-window labels -> the five top-2 scalars
@@ -17,6 +17,9 @@ and its plain twin on CPU tensors:
   counts_top2       K5  dense per-read counts [R, T+1] and the top-2 over
                         them (extended output at 65,535 targets);
                         twins counts_from_hits_plain + read_results_plain
+  counts_flat       K5's flat form: the same over flat per-query labels
+                        and read ids (the flat path, engine._query_single);
+                        the same twins
 """
 
 from __future__ import annotations
@@ -85,6 +88,20 @@ def counts_top2(lab: torch.Tensor, n_targets: int):
     counts = counts_from_hits_plain(
         lab.reshape(-1), rid.repeat_interleave(W), R, n_targets
     )
+    return (counts,) + read_results_plain(counts)
+
+
+def counts_flat(labels1: torch.Tensor, read_id: torch.Tensor, n_reads: int,
+                n_targets: int):
+    """counts_top2 over flat per-query labels1 [Q] int32 (label+1 in
+    [0, T]; 0 = miss) and their read ids [Q] int32 in [0, n_reads): the
+    flat path's scoring (K5's flat form on a CUDA tensor)."""
+    if labels1.device.type == "cuda":
+        from . import kernels
+
+        return kernels.counts_flat(labels1, read_id, n_reads, n_targets)
+    _check_device(labels1)
+    counts = counts_from_hits_plain(labels1, read_id, n_reads, n_targets)
     return (counts,) + read_results_plain(counts)
 
 

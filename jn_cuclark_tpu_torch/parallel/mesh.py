@@ -27,6 +27,12 @@ own shards, are summed over the world by one all_reduce (`_all_reduce`)
 before the miss mask and the scoring, which every process runs on the
 whole batch.  Every process packs the same batches, so the all-reduces pair
 up in order.  Only the db mode crosses processes.
+
+The flat path's sorted index (`shard_index`, packed=False) splits its keys
+in equal blocks over a one-axis mesh: each block runs the search K9 over
+the batch's queries, the blocks' labels are summed by `_reduce` (a key
+lies in one block), and K5's flat form scores on the first device.  It
+stays in one process.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import device_pipeline, radix_table, score
+from ..ops import device_pipeline, lookup, radix_table, score
 from ..utils import memory
 from ..utils.profiling import maybe_phase
 from . import dist
@@ -440,3 +446,42 @@ def shard_reads_db(mesh: Mesh, table: radix_table.RadixTable, n_targets: int,
                 lab, n_targets=n_targets, extended=extended))
 
     return shards, batch_fn
+
+
+def shard_index(mesh: Mesh, keys: np.ndarray, labels1: np.ndarray,
+                n_targets: int):
+    """The flat path's sorted index over a one-axis mesh: keys (u64,
+    ascending) and labels1 padded to a multiple of the mesh size
+    (lookup.pad_index) and split into equal contiguous blocks, block i on
+    device i.  Returns (key blocks, label blocks, query_fn);
+    query_fn(key blocks, label blocks, q, qread, n_reads) -> (total,
+    ibest, best, sbest, counts) runs K9 on every block, sums the labels on
+    the first device (at most one block holds a query's key) and scores
+    there with K5's flat form."""
+    if mesh.collective:
+        raise NotImplementedError(
+            "the flat sorted-array path (packed=False) on a mesh across "
+            "processes is not ported (ROADMAP A11)")
+    if len(mesh.axis_names) != 1:
+        raise ValueError("the flat path's index shards over a one-axis mesh")
+    devs = mesh.devices
+    keys, labels1 = lookup.pad_index(np.asarray(keys, dtype=np.uint64),
+                                     np.asarray(labels1, dtype=np.int32),
+                                     len(devs))
+    per = len(keys) // len(devs)
+    key_blocks = [torch.from_numpy(keys[i * per : (i + 1) * per]
+                                   .view(np.int64)).to(d)
+                  for i, d in enumerate(devs)]
+    label_blocks = [torch.from_numpy(labels1[i * per : (i + 1) * per]).to(d)
+                    for i, d in enumerate(devs)]
+    home = devs[0]
+
+    def query_fn(key_blocks, label_blocks, q, qread, n_reads: int):
+        with torch.inference_mode():
+            lab = _reduce([lookup.lookup_labels(kb, lb, q.to(kb.device))
+                           for kb, lb in zip(key_blocks, label_blocks)], home)
+            counts, total, ib, b, _, sb = score.counts_flat(
+                lab, qread.to(home), n_reads, n_targets)
+            return total, ib, b, sb, counts
+
+    return key_blocks, label_blocks, query_fn

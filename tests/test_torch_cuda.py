@@ -32,13 +32,16 @@ def dev():
 
 def test_kernels_equal_their_twins(dev):
     kernels.reset_launches()
-    # + 2: the two kshift = 1 tables (big_tables), each probed twice
+    # + 2: the two kshift = 1 tables (big_tables), each probed twice;
+    # + 6 + 1 + 6: K9's cases (each searched twice) and its 48M-key index,
+    # K5's flat form's cases
     assert chip_smoke.check_kernels(dev) == (
-        21 + 10 + 45 + 12 + 12 + 13 + 29 + 9 + 2)
+        21 + 10 + 45 + 12 + 12 + 13 + 29 + 9 + 2 + 6 + 1 + 6)
     assert kernels.LAUNCHES == {"window_canonicals": 24, "probe": 10 + 2,
                                 "top2": 45, "sort_top2": 12, "counts_top2": 12,
                                 "aggregate": 13, "probe_chunk": 29,
-                                "probe_dense": 18 + 2, "top2 small": 13,
+                                "probe_dense": 18 + 2, "lookup": 12 + 1,
+                                "counts_flat": 6, "top2 small": 13,
                                 "top2 hash": 15, "top2 block": 17}
 
 
@@ -87,6 +90,62 @@ def test_chunk_and_dense_wrappers_reject_bad_input(dev):
     assert kernels.probe_chunk(slots, sk, sl, q, 4, 3, 2, False).tolist() == [0] * 5
     assert kernels.probe_chunk(slots, sk, sl, q, 8, 3, 2, True).tolist() == [0] * 5
     assert kernels.LAUNCHES["probe_chunk"] == 2
+
+
+def test_flat_wrappers_reject_bad_input(dev):
+    """K9's and K5's flat form's wrappers refuse what their kernels do not
+    take, launching nothing; an empty index or batch launches and gives
+    misses or zero rows."""
+    kernels.reset_launches()
+    keys = torch.arange(10, dtype=torch.int64, device=dev)
+    labels1 = torch.ones(10, dtype=torch.int32, device=dev)
+    q = torch.arange(5, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError):  # labels of another length
+        kernels.lookup(keys, labels1[:9], q)
+    with pytest.raises(TypeError):  # int32 queries
+        kernels.lookup(keys, labels1, q.int())
+    with pytest.raises(ValueError):  # keys on the CPU
+        kernels.lookup(keys.cpu(), labels1, q)
+    lab, rid = q.int(), torch.zeros(5, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        kernels.counts_flat(lab, rid[:4], 1, 16)
+    with pytest.raises(ValueError):
+        kernels.counts_flat(lab, rid, 1, 0)
+    with pytest.raises(TypeError):
+        kernels.counts_flat(lab.long(), rid, 1, 16)
+    assert all(v == 0 for v in kernels.LAUNCHES.values())
+    assert kernels.lookup(keys[:0], labels1[:0], q).tolist() == [0] * 5
+    counts, total, *_ = kernels.counts_flat(lab[:0], rid[:0], 3, 4)
+    assert counts.tolist() == [[0] * 5] * 3 and total.tolist() == [0] * 3
+    assert kernels.LAUNCHES["lookup"] == kernels.LAUNCHES["counts_flat"] == 1
+
+
+def test_host_paths_on_the_card(dev, tmp_path):
+    """chip_smoke.py's phase 8 at a small scale on the card (3 genomes x
+    16,000 bp, 1,500 reads): every flat path's CSV byte-equal to the
+    native resident run's, each launched K9 and K5's flat form, and a
+    trace kept every kernel of a burst at its start."""
+    scale = tmp_path / "scale"
+    scale.mkdir()
+    prof = Profile(name="t", htsize=1048573, light=False, default_k=31)
+    _, launches, clf, _, _ = chip_smoke.run_scale(dev, str(scale), 3, 16_000,
+                                                  1500, n_pairs=300, prof=prof)
+    chip_smoke.run_tools(dev, str(tmp_path), clf, str(scale), 3, prof,
+                         launches, n_c3=600, c4_samples=2, n_c4=200)
+    flat, _ = chip_smoke._load(dev, str(scale), prof, packed=False)
+    host = chip_smoke.run_host_paths(dev, str(scale), prof, flat, launches,
+                                     str(tmp_path / "tools"), mesh_n=2,
+                                     sub=700)
+    assert all(host["host trace"]["kernels_named"].values())
+    burst = host["host trace"]["burst"]
+    assert burst["trace_kept"] == burst["launched"] == chip_smoke.TRACE_BURST
+    for path, need in chip_smoke.PATH_KERNELS.items():
+        if path.startswith("host"):
+            assert all(launches[path][n] > 0 for n in need), path
+    assert launches["host flat"]["lookup"] == launches["host flat"][
+        "counts_flat"] >= 1
+    assert launches["host flat mesh"]["lookup"] == 2 * launches[
+        "host flat mesh"]["counts_flat"]
 
 
 def test_wrapper_rejects_bad_input(dev):

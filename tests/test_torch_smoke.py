@@ -22,8 +22,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_phases_on_cpu(tmp_path, monkeypatch):
     dev = torch.device("cpu")
+    # + 6 + 6: K9's and K5's flat form's cases
     assert chip_smoke.check_kernels(dev, big_tables=False) == (
-        21 + 10 + 45 + 12 + 12 + 13 + 29 + 9)
+        21 + 10 + 45 + 12 + 12 + 13 + 29 + 9 + 6 + 6)
     assert chip_smoke.check_goldens(dev, str(tmp_path)) == 6
     assert chip_smoke.check_golden_dbs(dev, str(tmp_path)) == 3
     dense = chip_smoke.check_dense_targets(dev, str(tmp_path), n_reads=40)
@@ -83,6 +84,22 @@ def test_phases_on_cpu(tmp_path, monkeypatch):
     assert cl["sharded"]["nodes"]["nodeB"]["reads"] == 300
     assert cl["sharded one process"]["processes"][0]["all_reduce"]["calls"] > 0
     assert cl["sample-parallel"]["processes"][1]["all_reduce"]["calls"] == 0
+    # phase 8: the host paths on the phase-4 DB, the flat mesh of two
+    flat, _ = chip_smoke._load(dev, str(scale), prof, packed=False)
+    host = chip_smoke.run_host_paths(dev, str(scale), prof, flat, launches,
+                                     str(tmp_path / "tools"), mesh_n=2,
+                                     sub=700)
+    assert host["host flat"]["reads"] == 1500
+    assert host["host flat mesh"]["reads"] == host["subset_reads"] == 700
+    assert host["host flat extended"]["reads"] == 1500
+    assert host["host flat mesh"]["device_bytes"] == 12 * (
+        m["db_keys"] + m["db_keys"] % 2)  # padded to the mesh's 2 blocks
+    assert host["host flat"]["device_bytes"] == 12 * m["db_keys"]
+    assert host["host trace"]["trace_files"] == 1
+    assert host["host trace"]["trace_events"] > 0
+    assert host["host trace"]["reads"] == 600
+    assert host["host trace"]["device_bytes"] == clf.table.nbytes
+    assert host["host trace"]["burst"] is None  # the card's check
     for path in ("classify", "extended", "paired"):
         assert set(m["phase_s"][path]) >= {"scan", "pack", "dispatch",
                                            "device_wait", "format"}
@@ -95,8 +112,8 @@ def test_phases_on_cpu(tmp_path, monkeypatch):
     assert all(c == 0 for p in launches.values() for c in p.values())
     with pytest.raises(AssertionError, match="never launched"):
         chip_smoke.check_launches(launches)  # the CPU runs the twins
-    timing, shape = chip_smoke.time_kernels(dev, clf, dense_clf, fa, lens,
-                                            str(scale), 3, reps=1,
+    timing, shape = chip_smoke.time_kernels(dev, clf, dense_clf, flat, fa,
+                                            lens, str(scale), 3, reps=1,
                                             dense_rows=8)
     assert shape["stride"] == 256 and shape["windows"] == 224
     assert shape["k1_run"]["E"] == 8 and shape["k1_run"]["block"] == [9, 28]
@@ -126,7 +143,13 @@ def test_phases_on_cpu(tmp_path, monkeypatch):
     assert {n for n, t in timing.items() if t["library_ms"] is not None} == {
         "sort_top2", "counts_top2", "counts_top2 T=65535", "aggregate",
         "aggregate padded", "top2", "top2 hash", "top2 T=65535",
-        "top2 block T=65535"}
+        "top2 block T=65535", "lookup", "counts_flat"}
+    # the flat path's first batch: every read of the rehearsal (each of at
+    # most 220 windows: far below 2^20 queries), its searches' reads
+    fb = shape["flat_batch"]
+    assert fb["reads"] == 1500 and fb["index_keys"] == m["db_keys"]
+    assert 0 < fb["search"]["hits"] <= fb["search"]["queries"] == fb["queries"]
+    assert fb["search"]["compares"] >= fb["queries"]
 
 
 def test_kshift_case_plans_kshift_1():
