@@ -37,13 +37,18 @@ raises and exits non-zero before the result lines:
              a padded partition, a bucket over its capacity split level by
              level, a key of 100,000 occurrences mid-range, all keys
              equal and n = 1, each case raising its branch of the plan;
-             K9 (the flat path's search) with keys of bit 63 set (k = 32)
-             up to 2^64 - 2, queries below the first key and past the
-             last, the pad query, one key, N not a power of two, an empty
-             index, Q = 1, and a config-2-sized index of 48M keys; K5's
-             flat form over ragged reads (of 0 and 1 queries too), ties,
-             the pad queries, T + 1 at 4,096 and 4,097, 65,535 targets,
-             no query
+             K9 (the flat path's search through the index's radix
+             directory, against the whole-array search's twin and the
+             directory's) with keys of bit 63 set (k = 32) up to 2^64 - 2,
+             queries below the first key and past the last, the pad
+             query, one key, N not a power of two, an empty index, Q = 1,
+             a cluster in one bucket, two clusters far apart, a padded
+             block and one of pad keys alone, queries at the range's
+             edges, one bucket and a shift of 64, duplicate keys, and a
+             config-2-sized index of 48M keys; K5's flat form over ragged reads (of 0 and 1 queries
+             too), ties, the pad queries, T + 1 at 4,096 and 4,097, 65,535
+             targets, no query, a permuted batch, 1,000 queries on one
+             counter, labels alternating query by query
   3 goldens  classify the reference's golden reads on the card (single-end,
              --extended, paired): the six CSVs must be byte-equal to
              tests/golden; rebuild three golden DBs with device="cuda"
@@ -83,8 +88,11 @@ raises and exits non-zero before the result lines:
              byte-equal
   5 timing   each kernel and its twin at the shapes of those paths, with
              its bound and a one-call PyTorch yardstick where one exists;
-             a kernel's ms is its device time in torch.profiler's trace
-             (CUDA events around the wrapper calls beside it, as event_ms);
+             a kernel's ms is its device time in a torch.profiler session
+             checked whole (utils/profiling.cuda_session: a warm-up before,
+             closing markers after; a lost session retaken up to 3 times,
+             the retakes recorded; CUDA events around the wrapper calls
+             beside it, as event_ms);
              K7 against each chunk of the table's 4-cycle split; K2, K7,
              K8 and K6 split by pass; K6 on a build partition as it is
              and padded to 2^25, with torch.sort of its keys as the
@@ -98,7 +106,12 @@ raises and exits non-zero before the result lines:
              on the flat path's first config-2 batch (2^20 queries against
              the sorted 48M-key index, loaded here with packed=False and
              kept for phase 8), torch.searchsorted plus the gather and
-             torch.bincount their library calls
+             torch.bincount their library calls; K9's bound the floor of
+             its work (the queries, the key sector of each distinct
+             lower-bound position, a label sector a hit, the labels out);
+             beside it the bounds of a whole-array binary search's sectors
+             and of the directory design's, and the directory's build
+             seconds, bytes and bucket statistics
 
   6 tools    after phase 5, on phase 4's DB and Classifier: `verify --db`
              (READY, its toy batch through K1-K3 on the card); bench.py
@@ -135,13 +148,15 @@ raises and exits non-zero before the result lines:
              CSV byte-equal to phase 4's: (a) plain and --extended on the
              400,000 reads; (b) over a mesh of the card repeated 4 times.
              (f) a burst of 200 kernels inside a `profiling.trace` in
-             this long-lived process, every one in its trace (and how
+             this long-lived process, in a session its check finds whole
+             (taken again up to 3 times), every one in its trace (and how
              many a bare torch.profiler session loses at the same age,
-             at its start and at its end); `classify --trace-dir` on config 3's
-             20,000 reads through the CLI in this process (the kernels
-             its trace names recorded) and in a process of its own, its
-             trace naming K1's, K2's and K3's kernels; both CSVs phase
-             6's.  One JSON line a
+             at its start and at its end); `classify --trace-dir` on
+             config 3's 20,000 reads through the CLI in this process (the
+             kernels its trace names recorded) and in a process of its
+             own, its trace naming K1's, K2's and K3's kernels, each
+             session one its check finds whole (taken again up to 3
+             times, the retakes recorded); both CSVs phase 6's.  One JSON line a
              path: reads/s, seconds, index bytes on the card, launches.
              Then every path's launch counts are checked
 
@@ -467,11 +482,15 @@ def _index(keys: np.ndarray, rng, max_label: int = 65535):
 
 def k9_cases(seed: int = 0):
     """(label, keys [N] int64, labels1 [N] int32, q [Q] int64) on the CPU
-    for the sorted-array search: keys with bit 63 set (k = 32) up to
-    2^64 - 2, queried with stored keys, random misses, 0, 2^64 - 2, values
-    below the first key and past the last, and the pad query 2^64 - 1;
-    one key; N not a power of two at k = 31; an empty index; Q = 1; every
-    query one key."""
+    for the sorted-array search and its radix directory: keys with bit 63
+    set (k = 32) up to 2^64 - 2, queried with stored keys, random misses,
+    0, 2^64 - 2, values below the first key and past the last, and the pad
+    query 2^64 - 1; one key; N not a power of two at k = 31; an empty
+    index; Q = 1; every query one key; a cluster in one bucket; two
+    clusters far apart (most buckets empty); a pad_index-padded block and
+    a block of pad keys alone; queries at kmin - 1, kmin, kmax, kmax + 1
+    and 2^64 - 2; 2^0 buckets (N <= 8) over the whole u64 range, a shift
+    of 64; duplicate keys (the label of the first)."""
     rng = np.random.default_rng(seed)
     top = np.uint64((1 << 64) - 2)
     keys, labels1 = _index(np.concatenate([
@@ -500,6 +519,49 @@ def k9_cases(seed: int = 0):
     yield "Q=1", keys, labels1, keys[len(keys) // 2 : len(keys) // 2 + 1]
     yield "one key queried", keys, labels1, np.full(5000, keys[777])
 
+    def near(keys, n):  # stored keys, their neighbours, random values
+        lo, hi = int(keys[0]), int(keys[-1])
+        return np.concatenate([keys, keys - np.uint64(1), keys + np.uint64(1),
+                               rng.integers(lo, hi, size=n, dtype=np.uint64,
+                                            endpoint=True)])
+    # 20,000 keys within 2^20 of 2^40, two far keys: a bucket spans 2^52
+    # values, so the cluster fills one bucket
+    keys, labels1 = _index(np.concatenate([
+        (1 << 40) + rng.integers(0, 1 << 20, size=20_000, dtype=np.uint64),
+        np.array([5, (1 << 63) + 9], np.uint64)]), rng)
+    yield "cluster in one bucket", keys, labels1, near(keys, 20_000)
+    keys, labels1 = _index(np.concatenate([
+        rng.integers(0, 1 << 24, size=30_000, dtype=np.uint64),
+        top - rng.integers(0, 1 << 24, size=30_000, dtype=np.uint64)]), rng)
+    yield "two clusters far apart", keys, labels1, near(keys, 30_000)
+    keys, labels1 = _index(rng.integers(1 << 30, 1 << 50, size=5_000,
+                                        dtype=np.uint64), rng)
+    padded = lookup.pad_index(keys, labels1, 7 * 1024)
+    yield "padded block", *padded, np.concatenate([
+        near(keys, 5_000), np.array([lookup.PAD_QUERY], np.uint64)])
+    yield ("pad keys alone", np.full(4, lookup.PAD_QUERY),
+           np.zeros(4, np.int32), np.concatenate([
+               keys[:100], np.array([0, top, lookup.PAD_QUERY], np.uint64)]))
+    yield "range edges", keys, labels1, np.array(
+        [keys[0] - 1, keys[0], keys[-1], keys[-1] + 1, top, 0,
+         lookup.PAD_QUERY], np.uint64)
+    keys = np.array([3, 1 << 40, (1 << 63) + 7, top], np.uint64)
+    yield "b=0 shift 64", keys, np.array([4, 5, 6, 7], np.int32), near(
+        keys, 1_000)
+    keys = np.sort(np.repeat(rng.integers(0, 1 << 62, size=3_000,
+                                          dtype=np.uint64), 3))
+    yield ("duplicate keys", keys,
+           rng.integers(1, 100, size=len(keys)).astype(np.int32),
+           near(keys, 3_000))
+
+
+def k9_stored(keys: np.ndarray, labels1: np.ndarray) -> np.ndarray:
+    """What the search of each stored key gives: the label of its first
+    copy, 0 for a pad key."""
+    first = np.searchsorted(keys, keys)  # unsigned, the first equal key
+    return np.where(keys == lookup.PAD_QUERY, 0, labels1[first]).astype(
+        np.int32)
+
 
 def _k9_tensors(keys, labels1, q, dev):
     return _i64(keys).to(dev), torch.from_numpy(labels1).to(dev), _i64(q).to(dev)
@@ -525,7 +587,10 @@ def k5_flat_cases(seed: int = 0):
     K5's flat form: ragged reads of 0 to 300 queries (reads of 0 and 1
     among them), each mostly one label, with ties on count; the pad
     queries the JAX package appends (label 0, read 0); T + 1 = 4,096 and
-    4,097; T = 16 at a flat batch's R; T = 65,535; no query at all."""
+    4,097; T = 16 at a flat batch's R; T = 65,535; no query at all; the
+    T = 16 batch permuted (no read's queries together); 1,000 queries on
+    one (read, label), whole warps of them; labels alternating query by
+    query within each read."""
     rng = np.random.default_rng(seed)
     yield ("ties T=9", np.array([3, 3, 5, 5, 0, 9, 2, 2, 9, 9, 1, 0], np.int32),
            np.array([0, 0, 0, 0, 0, 2, 2, 2, 2, 2, 3, 3], np.int32), 5, 9)
@@ -538,9 +603,18 @@ def k5_flat_cases(seed: int = 0):
         lab = np.where(rng.random(len(rid)) < 0.6, main,
                        rng.integers(0, T + 1, size=len(rid))).astype(np.int32)
         pad = 1000
-        yield (label, np.concatenate([lab, np.zeros(pad, np.int32)]),
-               np.concatenate([rid, np.zeros(pad, np.int32)]), R, T)
+        lab = np.concatenate([lab, np.zeros(pad, np.int32)])
+        rid = np.concatenate([rid, np.zeros(pad, np.int32)])
+        yield label, lab, rid, R, T
+        if T == 16:
+            perm = rng.permutation(len(lab))
+            yield "T=16 permuted", lab[perm], rid[perm], R, T
     yield ("no query", np.zeros(0, np.int32), np.zeros(0, np.int32), 9, 16)
+    yield ("one counter", np.full(1000, 5, np.int32),
+           np.full(1000, 3, np.int32), 8, 16)
+    rid = np.repeat(np.arange(300, dtype=np.int32), 150)
+    lab = np.where(np.arange(len(rid)) % 2, 1, 2).astype(np.int32)
+    yield "alternating labels", lab, rid, 300, 16
 
 
 def occurrences(rng, k: int, n: int):
@@ -897,15 +971,22 @@ def check_kernels(dev, big_tables: bool = True) -> int:
               (counts,) + score.read_results_plain(counts))
         n += 1
     for label, keys, labels1, q in k9_cases():
+        stored = torch.from_numpy(k9_stored(keys, labels1)).to(dev)
         keys, labels1, q = _k9_tensors(keys, labels1, q, dev)
-        _same(f"K9 {label}", [lookup.lookup_labels(keys, labels1, q)],
-              [lookup.lookup_labels_plain(keys, labels1, q)])
-        if not torch.equal(lookup.lookup_labels(keys, labels1, keys), labels1):
+        index = lookup.build_index(keys, labels1)
+        # the whole-array search's twin against the directory's twin and
+        # K9 (on the CPU the directory's twin again)
+        want = lookup.lookup_labels_plain(keys, labels1, q)
+        _same(f"K9 {label} directory twin",
+              [lookup.lookup_labels_dir_plain(index, q)], [want])
+        _same(f"K9 {label}", [lookup.lookup_labels(index, q)], [want])
+        if not torch.equal(lookup.lookup_labels(index, keys), stored):
             raise AssertionError(f"K9 {label}: a stored key missed")
         n += 1
     if big_tables:
         keys, labels1, q = k9_index_48m(dev)
-        _same("K9 48M keys", [lookup.lookup_labels(keys, labels1, q)],
+        _same("K9 48M keys", [lookup.lookup_labels(
+            lookup.build_index(keys, labels1), q)],
               [lookup.lookup_labels_plain(keys, labels1, q)])
         del keys, labels1, q
         n += 1
@@ -1666,10 +1747,12 @@ def _probe_reads(slots: torch.Tensor, rows: torch.Tensor, qlow: torch.Tensor,
 
 
 def _search_reads(keys: torch.Tensor, q: torch.Tensor) -> dict:
-    """What K9's searches of q in keys must read: the distinct 32-B sectors
-    of keys that their lower-bound steps and final compare visit, and a
-    sector of labels (4 B each) per hit's; with the compares they make.
-    The pad query makes none."""
+    """What binary searches of q over the whole of keys read: the distinct
+    32-B sectors of keys that their lower-bound steps and final compare
+    visit, and a sector of labels (4 B each) per hit's; with the compares
+    they make (the pad query makes none); and floor_bytes, what any search
+    must read: the key sector of each distinct lower-bound position and
+    the label sectors."""
     n = keys.shape[0]
     q = q[q != bits.EMPTY]
     kf, qf = keys ^ bits._SIGN, q ^ bits._SIGN
@@ -1693,7 +1776,39 @@ def _search_reads(keys: torch.Tensor, q: torch.Tensor) -> dict:
     return dict(queries=int(q.numel()), compares=compares + int(fin.numel()),
                 hits=int(hit.numel()), key_sectors=key_sectors,
                 label_sectors=label_sectors,
-                bytes=32 * (key_sectors + label_sectors))
+                bytes=32 * (key_sectors + label_sectors),
+                # what no search can read less of: the key sector of each
+                # distinct lower-bound position, a label sector a hit
+                floor_bytes=32 * (int(torch.unique(fin >> 2).numel())
+                                  + label_sectors))
+
+
+def _directory_reads(d: lookup.FlatIndex, q: torch.Tensor) -> dict:
+    """What K9's directory design reads of the index for queries q: the
+    32-B sectors of the directory's offsets they load (dir[j] and
+    dir[j + 1]) and the key sectors of the buckets they search (all of
+    each, as a scan reads them), with the directory's bucket statistics:
+    mean and largest keys a bucket, the share of empty buckets."""
+    sizes = (d.offsets[1:] - d.offsets[:-1]).long()
+    stats = dict(bits=d.bits, shift=d.shift, buckets=int(sizes.numel()),
+                 mean_keys=float(sizes.double().mean()),
+                 max_keys=int(sizes.max()),
+                 empty_share=float((sizes == 0).double().mean()),
+                 directory_bytes=_nbytes(d.offsets))
+    if d.kmin > d.kmax:
+        return dict(stats, dir_sectors=0, bucket_sectors=0, bytes=0)
+    kmin = torch.tensor(bits.i64(d.kmin), device=q.device)
+    kmax = torch.tensor(bits.i64(d.kmax), device=q.device)
+    q = q[(q != bits.EMPTY) & ~bits.ult(q, kmin) & ~bits.ult(kmax, q)]
+    j = torch.unique(lookup.bucket_index(q, d.kmin, d.shift))
+    dir_sectors = int(torch.unique(torch.cat([j >> 3, (j + 1) >> 3])).numel())
+    lo, hi = d.offsets[j].long(), d.offsets[j + 1].long()
+    lo, hi = lo[hi > lo], hi[hi > lo]
+    s0, s1 = lo >> 2, (hi - 1) >> 2  # ascending with j: neighbours may
+    # share their boundary sector
+    bucket_sectors = int((s1 - s0 + 1).sum() - (s0[1:] == s1[:-1]).sum())
+    return dict(stats, dir_sectors=dir_sectors, bucket_sectors=bucket_sectors,
+                bytes=32 * (dir_sectors + bucket_sectors))
 
 
 def flat_batch(flat: Classifier, fa: bytes, n_records: int = 20_000):
@@ -1717,6 +1832,11 @@ def _bound(nbytes: int, ops: int):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def _ms(fn, dev, reps: int) -> float:
     fn()  # warm-up
     if dev.type != "cuda":
@@ -1735,32 +1855,47 @@ def _ms(fn, dev, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_split(fn, dev, reps: int) -> dict:
-    """Device milliseconds per call of each kernel that fn launches, from
-    torch.profiler's CUDA trace (empty where the trace shows none): each
-    kernel's mean duration times its launches a call."""
-    from torch.profiler import ProfilerActivity, profile
+SPLIT_RETAKES = 3  # a timed function's profiler sessions taken again
 
+
+def _device_split(fn, dev, reps: int) -> tuple[dict, int]:
+    """Device milliseconds per call of each kernel (and memset) that fn
+    launches: its device time in a torch.profiler session over reps calls
+    (profiling.cuda_session, whose warm-up takes the first kernels a
+    session drops).  A session is lost where profiling.check_session
+    finds a kernel missing, or where a kernel's events are no multiple of
+    reps; it is taken again, up to SPLIT_RETAKES times, and then this
+    raises.  Returns (split, retakes)."""
     fn()  # warm-up
     torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        # the card's stamps lead the host clock: launches right at the
-        # window's start would fall out of the trace (utils/profiling.py)
-        time.sleep(profiling.TRACE_LEAD_S)
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize(dev)
-    out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = e.cuda_time_total
-        if us > 0 and e.count:
-            # a launch's mean times the launches a call makes, which holds
-            # where the trace keeps fewer events than there were launches
-            out[e.key.split("(")[0]] = (us / e.count / 1e3
-                                        * max(round(e.count / reps), 1))
-    return out
+    lost = []
+    with tempfile.TemporaryDirectory() as td:
+        for take in range(SPLIT_RETAKES + 1):
+            with profiling.cuda_session(os.path.join(td, f"{take}.json"),
+                                        dev) as rec:
+                for _ in range(reps):
+                    fn()
+            split = session_split(rec, reps)
+            if split is not None:
+                return split, take
+            lost.append({k: v for k, v in rec.items() if k != "events"})
+    raise AssertionError(f"{SPLIT_RETAKES + 1} profiler sessions lost "
+                         f"kernels: {lost}")
+
+
+def session_split(rec: dict, reps: int) -> dict | None:
+    """Device milliseconds per call of each kernel (and memset) in the
+    block of a profiling.cuda_session record of reps calls, by name; None
+    where the session is not whole or a name's events are no multiple of
+    reps (each call launches the same kernels)."""
+    us, count = {}, {}
+    for e in profiling.block_events(rec["events"]):
+        name = e["name"].split("(")[0]
+        us[name] = us.get(name, 0.0) + e["dur"]
+        count[name] = count.get(name, 0) + 1
+    if not rec["whole"] or any(c % reps for c in count.values()):
+        return None
+    return {n: t / reps / 1e3 for n, t in us.items()}
 
 
 SASS_KERNELS = ("window_canonicals_kernel", "sort_warp_kernel", "top2_kernel",
@@ -1869,10 +2004,18 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, flat: Classifier,
     qf = q.view(-1)
     # the flat path's first batch: K9's queries, then K5's flat form over
     # its labels; the yardsticks search the carriers flipped once here
-    fk, fl = flat.keys, flat.labels1
+    fx = flat.index
+    fk, fl = fx.keys, fx.labels1
     fq, fqr, fnb = flat_batch(flat, fa)
-    flab = lookup.lookup_labels(fk, fl, fq)
+    flab = lookup.lookup_labels(fx, fq)
     search = _search_reads(fk, fq)
+    directory = _directory_reads(fx, fq)
+    # the directory's build, as the flat index's load runs it
+    _sync(dev)
+    t = time.perf_counter()
+    lookup.build_index(fk, fl)
+    _sync(dev)
+    directory["build_s"] = time.perf_counter() - t
     fk_flip, fq_flip = fk ^ bits._SIGN, fq ^ bits._SIGN
     fids = fqr.long() * (T + 1) + flab.long()
     stash_bytes = _nbytes(tbl.stash_keys, tbl.stash_labels)
@@ -1964,10 +2107,13 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, flat: Classifier,
             lambda name=name: torch.sort(sort_keys[name], stable=True),
         ) for name, p in (("aggregate", part), ("aggregate padded", part_pad))},
         "lookup": (
-            lambda: lookup.lookup_labels(fk, fl, fq),
-            lambda: lookup.lookup_labels_plain(fk, fl, fq),
-            # the queries and the labels out, and what the searches visit
-            _nbytes(fq, flab) + search["bytes"], search["compares"],
+            lambda: lookup.lookup_labels(fx, fq),
+            lambda: lookup.lookup_labels_dir_plain(fx, fq),
+            # what the search needs whatever its design: the queries in, the
+            # key sector of each distinct lower-bound position and a label
+            # sector a hit (the labels out are added below), a compare a
+            # query
+            _nbytes(fq) + search["floor_bytes"], search["queries"],
             lambda: fl[torch.searchsorted(fk_flip, fq_flip).clamp_(
                 max=fk.shape[0] - 1)],
         ),
@@ -1975,9 +2121,9 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, flat: Classifier,
             lambda: score.counts_flat(flab, fqr, fnb, T),
             lambda: (lambda c: (c,) + score.read_results_plain(c))(
                 score.counts_from_hits_plain(flab, fqr, fnb, T)),
-            # the labels and read ids in; the [R, T+1] counts and the five
-            # [R] int32 results out
-            _nbytes(flab, fqr) + 4 * fnb * (T + 1 + 5),
+            # the labels and read ids in (the [R, T+1] counts and the five
+            # [R] int32 results out are added below)
+            _nbytes(flab, fqr),
             flab.numel() + fnb * T,
             lambda: torch.bincount(fids, minlength=fnb * (T + 1)),
         ),
@@ -2008,11 +2154,12 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, flat: Classifier,
         # a kernel's time is its device time in the trace: events around
         # the calls also count the wrappers' host work, 15-60 microseconds
         # a call, which outlasts a kernel of 0.02-0.04 ms
-        device = (_device_split(kern, dev, reps) if dev.type == "cuda"
-                  else {})
+        device, retakes = (_device_split(kern, dev, reps)
+                           if dev.type == "cuda" else ({}, 0))
         ms = sum(device.values()) if device else event_ms
         out[name] = dict(max_abs_err=err, ms=ms,
                          ms_from="trace" if device else "events",
+                         retakes=retakes,
                          event_ms=event_ms,
                          plain_ms=_ms(plain, dev, plain_reps),
                          bound_ms=bound_ms, bound_by=bound_by,
@@ -2040,12 +2187,21 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, flat: Classifier,
     # the miss mask between the probe and K3 (device_pipeline._masked):
     # glue on every path, timed by its device ops in the trace
     mask_bytes = _nbytes(q, hits) + _nbytes(lab)
-    mask_ops = (_device_split(lambda: device_pipeline._masked(q, hits), dev,
-                              reps) if dev.type == "cuda" else {})
+    mask_ops, mask_retakes = (
+        _device_split(lambda: device_pipeline._masked(q, hits), dev, reps)
+        if dev.type == "cuda" else ({}, 0))
     mask_glue = dict(
         ms=sum(mask_ops.values()) if mask_ops else None, ops=mask_ops,
+        retakes=mask_retakes,
         event_ms=_ms(lambda: device_pipeline._masked(q, hits), dev, reps),
         bytes=mask_bytes, bound_ms=_bound(mask_bytes, q.numel())[0])
+    # side readings beside K9's bound: the bounds of what a binary search
+    # of the whole key array visits and of what the directory design reads
+    search["bound_ms"] = _bound(_nbytes(fq, flab) + search["bytes"],
+                                search["compares"])[0]
+    directory["bound_ms"] = _bound(
+        _nbytes(fq, flab) + directory["bytes"] + 32 * search["label_sectors"],
+        0)[0]
     # the record's K7 error covers every chunk of the split
     out["probe_chunk"]["max_abs_err"] = max(
         out["probe_chunk" + (f" chunk {i}" if i else "")]["max_abs_err"]
@@ -2078,7 +2234,11 @@ def time_kernels(dev, clf: Classifier, dense: Classifier, flat: Classifier,
                      probe_reads=reads, dense_m1_m2=[dt.m1, dt.m2],
                      flat_batch=dict(reads=fnb, queries=int(fq.numel()),
                                      index_keys=int(fk.shape[0]),
-                                     targets=T, search=search),
+                                     targets=T, search=search,
+                                     directory=directory),
+                     retakes=dict(
+                         {name: t["retakes"] for name, t in out.items()},
+                         mask=mask_retakes),
                      probe_bins=kernels.group_bins(1 << tbl.m1),
                      dense_bins=[kernels.group_bins(1 << dt.m1),
                                  kernels.plane2_form(dt.m2, dt.c)])
@@ -2649,11 +2809,11 @@ TRACE_KERNELS = ("window_canonicals_kernel", "group_probe_kernel",
 
 
 def _device_bytes(clf: Classifier) -> int:
-    """Device bytes of a flat classifier's sorted keys and labels (every
-    block on a mesh)."""
-    blocks = clf.keys if isinstance(clf.keys, list) else [clf.keys]
-    labels = clf.labels1 if isinstance(clf.labels1, list) else [clf.labels1]
-    return _nbytes(*blocks, *labels)
+    """Device bytes of a flat classifier's sorted keys, labels and radix
+    directory (every block's on a mesh)."""
+    blocks = clf.index if isinstance(clf.index, list) else [clf.index]
+    return _nbytes(*(t for ix in blocks
+                     for t in (ix.keys, ix.labels1, ix.offsets)))
 
 
 def _head(path: str, n: int, out: str) -> str:
@@ -2678,31 +2838,35 @@ def _trace_kernels(trace_dir: str) -> tuple[int, int, set]:
 TRACE_BURST = 200  # kernels launched at once inside a trace
 
 
+def _trace_events(trace_dir: str) -> list:
+    """The events of the Chrome traces in a directory."""
+    return [e for f in os.listdir(trace_dir) if f.endswith(".json")
+            for e in json.load(open(os.path.join(trace_dir, f)))[
+                "traceEvents"]]
+
+
 def _burst_kept(trace_dir: str, n: int = TRACE_BURST) -> dict:
     """A burst, the last n kernel launches of the Chrome traces in a
     directory: how many of its kernels were kept, and how many of its
     launches before the first kept kernel and after the last were lost
     (launch order is the runtime calls')."""
-    events = [e for f in os.listdir(trace_dir) if f.endswith(".json")
-              for e in json.load(open(os.path.join(trace_dir, f)))[
-                  "traceEvents"]]
-    launched = [e["args"]["correlation"] for e in sorted(
-        (e for e in events if e.get("cat") == "cuda_runtime"
-         and e["name"].startswith("cudaLaunchKernel")),
-        key=lambda e: e["ts"])][-n:]
-    kept = {e["args"].get("correlation") for e in events
-            if e.get("cat") == "kernel"}
-    at = [i for i, c in enumerate(launched) if c in kept]
-    return dict(kept=len(at), lost_first=at[0] if at else len(launched),
-                lost_last=len(launched) - 1 - at[-1] if at else 0)
+    events = _trace_events(trace_dir)
+    return profiling.span_kept(profiling.launches(events)[-n:],
+                               profiling.kept_kernels(events))
+
+
+TRACE_RETAKES = 3  # phase 8's traced burst: sessions taken again
 
 
 def trace_burst(dev, tmp: str) -> dict:
     """TRACE_BURST small kernels launched at once inside a bare
     torch.profiler session, which opens right before them and closes
-    right after they finish, then inside `profiling.trace` (after its
-    warm-up): how many of each burst reach the trace, and how many were
-    lost before the first kept and after the last."""
+    right after they finish, then inside `profiling.trace` (its warm-up
+    before, its closing markers after): how many of each burst reach the
+    trace, and how many were lost before the first kept and after the
+    last.  The traced session is taken again, up to TRACE_RETAKES times,
+    where profiling.check_session finds it not whole; a session it finds
+    whole must hold the whole burst."""
     from torch.profiler import ProfilerActivity, profile
 
     x = torch.zeros(1024, device=dev)
@@ -2715,16 +2879,25 @@ def trace_burst(dev, tmp: str) -> dict:
     bare = os.path.join(tmp, "burst_bare")
     os.makedirs(bare, exist_ok=True)
     prof.export_chrome_trace(os.path.join(bare, "t.json"))
-    guarded = os.path.join(tmp, "burst_trace")
-    with profiling.trace(guarded, cuda=True):
-        for _ in range(TRACE_BURST):
-            x.add_(1)
-    b, g = _burst_kept(bare), _burst_kept(guarded)
+    b = _burst_kept(bare)
+    lost = []
+    for take in range(TRACE_RETAKES + 1):
+        with profiling.trace(os.path.join(tmp, f"burst_trace{take}"),
+                             cuda=True) as g:
+            for _ in range(TRACE_BURST):
+                x.add_(1)
+        if g["whole"]:
+            break
+        lost.append(g)
+    if g["whole"] and g["kept"] != TRACE_BURST:
+        raise AssertionError(f"trace burst: a session checked whole kept "
+                             f"{g['kept']} of {TRACE_BURST}")
     return dict(launched=TRACE_BURST, bare_kept=b["kept"],
                 bare_lost_first=b["lost_first"],
                 bare_lost_last=b["lost_last"], trace_kept=g["kept"],
                 trace_lost_first=g["lost_first"],
-                trace_lost_last=g["lost_last"])
+                trace_lost_last=g["lost_last"], trace_retakes=len(lost),
+                trace_lost_sessions=lost)
 
 
 def run_host_paths(dev, tmp: str, prof: Profile, flat: Classifier,
@@ -2739,7 +2912,9 @@ def run_host_paths(dev, tmp: str, prof: Profile, flat: Classifier,
     `classify --trace-dir` on phase 6's config-3 reads, in this process
     (the kernels named recorded) and in a process of its own, whose trace
     must name K1's, K2's and K3's kernels on the card (be non-empty on the
-    CPU); each CSV equals phase 6's.  Prints one JSON line a path; returns
+    CPU); on the card each is taken again, up to TRACE_RETAKES times, until
+    profiling.check_session finds its session whole; each CSV equals
+    phase 6's.  Prints one JSON line a path; returns
     the metrics."""
     reads, res = os.path.join(tmp, "reads.fa"), os.path.join(tmp, "res")
     want = {}
@@ -2784,31 +2959,58 @@ def run_host_paths(dev, tmp: str, prof: Profile, flat: Classifier,
         raise AssertionError(f"trace burst: {burst}")
     c3 = os.path.join(tools_dir, "c3_reads.fa")
     c3_csv = os.path.join(tools_dir, "c3_res.csv")
-    # classify --trace-dir in this process, its kernels recorded: in a
-    # process this old a trace can lose some or all of them (PERF.md §7)
+
+    def traced(run, trace_dir: str):
+        """run() a traced classify into trace_dir, taken again up to
+        TRACE_RETAKES times where profiling.check_session finds its
+        session not whole (on the card; then this raises).  Returns
+        (run()'s result, the check, the checks of the sessions lost)."""
+        lost = []
+        for _ in range(TRACE_RETAKES + 1):
+            shutil.rmtree(trace_dir, ignore_errors=True)
+            got = run()
+            if dev.type != "cuda":
+                return got, None, lost
+            check = profiling.check_session(_trace_events(trace_dir))
+            if check["whole"]:
+                return got, check, lost
+            lost.append(check)
+        raise AssertionError(f"{trace_dir}: {len(lost)} sessions lost "
+                             f"kernels: {lost}")
+
+    # classify --trace-dir in this process, its kernels recorded
     in_dir, in_out = os.path.join(tmp, "trace_in"), os.path.join(tmp, "tr_in")
-    rc, _ = _cli("classify", "-D", tools_dir, "-O", c3, "-R", in_out,
-                 "--trace-dir", in_dir, "--device", dev.type)
-    if rc:
-        raise AssertionError(f"host trace in process: rc {rc}")
+
+    def in_process():
+        rc, _ = _cli("classify", "-D", tools_dir, "-O", c3, "-R", in_out,
+                     "--trace-dir", in_dir, "--device", dev.type)
+        if rc:
+            raise AssertionError(f"host trace in process: rc {rc}")
+
+    _, in_check, in_lost = traced(in_process, in_dir)
     _same_file("host trace in process", in_out + ".csv", c3_csv)
     kernel_names = _trace_kernels(in_dir)[2]
-    in_process = {n: any(n in k for k in kernel_names) for n in TRACE_KERNELS}
+    in_names = {n: any(n in k for k in kernel_names) for n in TRACE_KERNELS}
     # then as a user runs it: the CLI in a process of its own (cli_child,
     # which records its launches), whose trace must name K1-K3
     trace_dir = os.path.join(tmp, "trace")
     out, child = os.path.join(tmp, "host_trace"), os.path.join(tmp, "child")
     os.makedirs(child, exist_ok=True)
-    t = time.perf_counter()
-    ((rc, log),) = _cluster_procs([[
-        sys.executable, os.path.join(ROOT, "chip_smoke.py"), "cli-child",
-        child, "classify", "-D", tools_dir, "-O", c3, "-R", out,
-        "--trace-dir", trace_dir, "--device", dev.type]], [_cluster_env()])
-    wall = time.perf_counter() - t
-    if rc:
-        raise AssertionError(f"host trace: rc {rc}\n{log[-4000:]}")
-    with open(os.path.join(child, "p0.json")) as f:
-        rec = json.load(f)
+
+    def in_child():
+        t = time.perf_counter()
+        ((rc, log),) = _cluster_procs([[
+            sys.executable, os.path.join(ROOT, "chip_smoke.py"), "cli-child",
+            child, "classify", "-D", tools_dir, "-O", c3, "-R", out,
+            "--trace-dir", trace_dir, "--device", dev.type]],
+            [_cluster_env()])
+        wall = time.perf_counter() - t
+        if rc:
+            raise AssertionError(f"host trace: rc {rc}\n{log[-4000:]}")
+        with open(os.path.join(child, "p0.json")) as f:
+            return json.load(f), wall
+
+    (rec, wall), check, lost = traced(in_child, trace_dir)
     launches["host trace"] = rec["launches"]
     _same_file("host trace", out + ".csv", c3_csv)
     with open(out + ".csv", "rb") as f:
@@ -2827,8 +3029,12 @@ def run_host_paths(dev, tmp: str, prof: Profile, flat: Classifier,
                                rec["wall_s"] - load_s),
                            device_bytes=rec["loads"][0]["table_bytes"],
                            trace_files=n_traces, trace_events=n_events,
-                           kernels_named=names,
-                           kernels_named_in_process=in_process, burst=burst,
+                           kernels_named=names, check=check,
+                           retakes=len(lost), lost_sessions=lost,
+                           kernels_named_in_process=in_names,
+                           check_in_process=in_check,
+                           retakes_in_process=len(in_lost),
+                           lost_sessions_in_process=in_lost, burst=burst,
                            launches={n: c for n, c in
                                      launches["host trace"].items() if c})
     print(json.dumps({"path": "host trace", **m["host trace"]}), flush=True)

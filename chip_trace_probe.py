@@ -8,10 +8,13 @@ traces a burst of 200 small kernels five ways: a bare session ("bare"),
 one that idles 50 ms after its window opens ("lead"), one with a first
 burst, 50 ms of idle, then the burst ("two"), one with a single kernel
 and 50 ms of idle first ("warm1"), and `profiling.trace` with its
-warm-up ("trace").  Prints one JSON line a session: the process's age in
-seconds and, for each way, [kernels kept, launches lost before the first
-kept, launches lost after the last] of the burst (for "two" also of both
-bursts together, "two_both").  Exits 1 without a CUDA device."""
+warm-up and closing markers ("trace").  Prints one JSON line a session:
+the process's age in seconds and, for each way, [kernels kept, launches
+lost before the first kept, launches lost after the last] of the burst
+(for "two" also of both bursts together, "two_both"; for "trace" a
+fourth entry, whether profiling.check_session found the session whole,
+and "trace_check", its closing markers lost and whether its last warm-up
+kernel was kept).  Exits 1 without a CUDA device."""
 
 import json
 import os
@@ -28,15 +31,17 @@ from jn_cuclark_tpu_torch.utils import profiling
 WAYS = ("bare", "lead", "two", "warm1", "trace")
 
 
-def session(x, way: str, out: str) -> None:
+def session(x, way: str, out: str) -> dict | None:
+    """One session of `way` into the directory out; profiling.trace's
+    check for "trace"."""
     def burst():
         for _ in range(TRACE_BURST):
             x.add_(1)
 
     if way == "trace":
-        with profiling.trace(out, cuda=True):
+        with profiling.trace(out, cuda=True) as rec:
             burst()
-        return
+        return rec
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as p:
         if way == "warm1":
@@ -66,7 +71,13 @@ def main() -> int:
             for way in WAYS:
                 out = os.path.join(td, f"{i}_{way}")
                 os.makedirs(out)
-                session(x, way, out)
+                rec = session(x, way, out)
+                if way == "trace":  # the burst lies before the markers
+                    row[way] = [rec["kept"], rec["lost_first"],
+                                rec["lost_last"], rec["whole"]]
+                    row["trace_check"] = [rec["markers_lost"],
+                                          rec["warmup_kept"]]
+                    continue
                 k = _burst_kept(out)
                 row[way] = [k["kept"], k["lost_first"], k["lost_last"]]
                 if way == "two":

@@ -35,8 +35,9 @@ batch in collectives that every process issues in one order, so such a
 Classifier takes one classify call at a time.
 
 packed=False takes the flat sorted-array path instead of the radix table:
-the DB's keys sorted on the device (ops/lookup.py), each batch's canonical
-windows computed on the host with numpy (io/fasta.parse_reads,
+the DB's keys sorted on the device with their radix directory
+(ops/lookup.py), each batch's canonical windows computed on the host with
+numpy (io/fasta.parse_reads,
 `flat_queries`), searched by K9 and scored by K5's flat form
 (`_query_single`; over a one-axis mesh, parallel/mesh.shard_index), each
 row formatted in Python (`_format_row`, byte-identical to the native
@@ -332,7 +333,7 @@ class Classifier:
     sharded = None  # the ShardedRadixTable of a db mesh
     shards = None  # a dp or dp x db mesh's tables on its devices
     _mesh_step = None  # the batch step of a dp or dp x db mesh
-    keys = labels1 = None  # the flat path's sorted index (blocks on a mesh)
+    index = None  # the flat path's lookup.FlatIndex (its blocks on a mesh)
 
     def __init__(
         self,
@@ -500,18 +501,20 @@ class Classifier:
 
     def _load_flat(self, canonical, labels):
         """The flat path's sorted index (lookup.prepare_index; labels + 1)
-        on the device, or its blocks over a one-axis mesh."""
+        with its radix directory (lookup.build_index) on the device, or
+        its blocks, each with its directory, over a one-axis mesh."""
         keys, labels1 = lookup.prepare_index(canonical, labels)
         self.table = None
         self.db_cycles = 1  # the index stays resident: cycles do not apply
         if self.mesh is not None:
             from .parallel.mesh import shard_index
 
-            self.keys, self.labels1, self.query_fn = shard_index(
+            self.index, self.query_fn = shard_index(
                 self.mesh, keys, labels1, self.n_targets)
             return
-        self.keys = _to_dev(keys, self.device)
-        self.labels1 = torch.from_numpy(labels1).to(self.device)
+        self.index = lookup.build_index(
+            _to_dev(keys, self.device),
+            torch.from_numpy(labels1).to(self.device))
         self.query_fn = functools.partial(_query_single,
                                           n_targets=self.n_targets)
 
@@ -1334,7 +1337,7 @@ class Classifier:
             q0, q1, nb = int(woff[r0]), int(woff[r1]), r1 - r0
             with maybe_phase("dispatch"):
                 total, ib, b, sb, counts = self.query_fn(
-                    self.keys, self.labels1, _to_dev(qvals[q0:q1], dev),
+                    self.index, _to_dev(qvals[q0:q1], dev),
                     torch.from_numpy((rid[q0:q1] - r0).astype(np.int32)).to(
                         dev), n_reads=nb)
             with maybe_phase("device_wait"):
@@ -1538,13 +1541,13 @@ def _g(x: float) -> bytes:
     return b"%g" % x
 
 
-def _query_single(keys, labels1, q, qread, *, n_targets: int, n_reads: int):
+def _query_single(index, q, qread, *, n_targets: int, n_reads: int):
     """One flat batch on one device: the search K9 of queries q [Q] int64
-    (u64 bits) in the sorted index, then K5's flat form over the reads
+    (u64 bits) in a lookup.FlatIndex, then K5's flat form over the reads
     qread [Q] int32 in [0, n_reads).  Returns (total, ibest, best, sbest,
     counts [n_reads, T+1]), as the JAX package's _query_single does."""
     with torch.inference_mode():
-        lab = lookup.lookup_labels(keys, labels1, q)
+        lab = lookup.lookup_labels(index, q)
         counts, total, ib, b, _, sb = score.counts_flat(lab, qread, n_reads,
                                                         n_targets)
         return total, ib, b, sb, counts

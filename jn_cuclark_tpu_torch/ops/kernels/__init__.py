@@ -16,7 +16,8 @@ the public functions (device_pipeline.window_canonicals_plain,
 radix_table.probe_plain, probe_chunk_plain, probe_dense_plain,
 score.top2_from_labels_plain, score.sort_top2_plain,
 score.counts_from_hits_plain + read_results_plain (K5, grid and flat
-forms), lookup.lookup_labels_plain,
+forms), lookup.lookup_labels_dir_plain (K9's steps) and
+lookup_labels_plain,
 db.device_build.aggregate_bucketed_plain, which runs K6's level plan,
 ops/bucket_plan.py, with each launch's twin) and run only for CPU tensors.
 """
@@ -107,6 +108,7 @@ def _build(name: str) -> str:
 
 def _bind(name: str, lib):
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    u64 = ctypes.c_ulonglong
     lib.clark_cuda_error_string.restype = ctypes.c_char_p
     lib.clark_cuda_error_string.argtypes = [i32]
     sigs = {
@@ -124,7 +126,7 @@ def _bind(name: str, lib):
             "launch_sort_top2": [p, i64, i64, i32, p, p, p, p, p, p, p],
             "launch_counts_top2": [p, i64, i64, i32, i32, p, p, p, p, p, p,
                                    p],
-            "launch_lookup": [p, p, i64, p, p, i64, p],
+            "launch_lookup": [p, p, p, u64, u64, i32, p, p, i64, p],
             "launch_counts_flat": [p, p, i64, i64, i32, p, p, p, p, p, p, p],
         },
         "aggregate": {
@@ -508,23 +510,33 @@ def counts_top2(lab: torch.Tensor, n_targets: int):
     return counts, total, ibest, best, isbest, sbest
 
 
-def lookup(keys: torch.Tensor, labels1: torch.Tensor,
-           q: torch.Tensor) -> torch.Tensor:
-    """K9: [Q] int32, the label + 1 of each query q [Q] int64 (u64 bits)
-    in the sorted index keys [N] int64 (u64 bits, ascending as u64),
-    labels1 [N] int32; 0 on a miss or for the pad query 2^64 - 1."""
+def lookup(index, q: torch.Tensor) -> torch.Tensor:
+    """K9: [Q] int32, the label + 1 of the first key equal to each query
+    q [Q] int64 (u64 bits) in a lookup.FlatIndex (keys [N] int64, u64
+    bits ascending as u64, labels1 [N] int32), searched through its radix
+    directory; 0 on a miss or for the pad query 2^64 - 1."""
     dev = q.device
+    keys, labels1, offsets = index.keys, index.labels1, index.offsets
     _check("keys", keys, torch.int64, 1, dev)
     _check("labels1", labels1, torch.int32, 1, dev)
     _check("q", q, torch.int64, 1, dev)
+    _check("directory offsets", offsets, torch.int32, 1, dev)
     if labels1.shape != keys.shape:
         raise ValueError(f"keys {tuple(keys.shape)} and labels1 "
                          f"{tuple(labels1.shape)} must have one length")
+    # 2^bits buckets that cover [kmin, kmax]: no query reads past them
+    nb = offsets.shape[0] - 1
+    if (keys.shape[0] >= 1 << 31 or nb < 1 or nb & (nb - 1)
+            or (index.kmin <= index.kmax
+                and (index.kmax - index.kmin) >> index.shift >= nb)):
+        raise ValueError(f"{offsets.shape[0]} directory offsets (2^bits + "
+                         f"1, covering the key range) for {keys.shape[0]} "
+                         f"keys (below 2^31)")
     lib = load()
     out = torch.empty(q.shape[0], dtype=torch.int32, device=dev)
     _launch(lib, lib.launch_lookup, "lookup", dev, keys.data_ptr(),
-            labels1.data_ptr(), keys.shape[0], q.data_ptr(), out.data_ptr(),
-            q.shape[0])
+            labels1.data_ptr(), offsets.data_ptr(), index.kmin, index.kmax,
+            index.shift, q.data_ptr(), out.data_ptr(), q.shape[0])
     return out
 
 
@@ -548,7 +560,8 @@ def counts_flat(labels1: torch.Tensor, read_id: torch.Tensor, n_reads: int,
                          device=dev)
     outs = torch.empty((5, n_reads), dtype=torch.int32, device=dev)
     total, ibest, best, isbest, sbest = outs
-    # the zeroing, the scatter and the top-2 count as one launch
+    # the zeroing, the warp-aggregated scatter and the top-2 count as one
+    # launch
     _launch(lib, lib.launch_counts_flat, "counts_flat", dev,
             labels1.data_ptr(), read_id.data_ptr(), labels1.shape[0],
             n_reads, n_targets + 1, counts.data_ptr(), total.data_ptr(),

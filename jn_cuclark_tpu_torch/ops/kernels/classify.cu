@@ -26,12 +26,10 @@
 // synchronise, allocates nothing, and returns cudaGetLastError() so a
 // refused launch surfaces at once.
 //
-// Every kernel here but K9 and K5's flat form is redesigned for the card
-// (their notes below say what bounds them and what the design does about
-// it); K3 and K4 keep the first, simple block form for rows wider than
-// their warp forms take; K9 and K5's flat form are the first, simple
-// forms.  The
-// DB-build aggregate (K6) lives in aggregate.cu.
+// Every kernel here is redesigned for the card (their notes below say what
+// bounds them and what the design does about it); K3 and K4 keep the
+// first, simple block form for rows wider than their warp forms take.
+// The DB-build aggregate (K6) lives in aggregate.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -1859,38 +1857,51 @@ top2_hash_kernel(const int* __restrict__ lab, long long R, long long W,
 // ---------------------------------------------------------------- K9
 // Replaces ops/lookup.py:41 lookup_labels, the flat path's index search:
 // keys [N] u64 ascending, labels1 [N] (label + 1), q [Q] u64 -> out [Q],
-// the label + 1 of the key equal to q, or 0 where none is or q is the pad
-// value 2^64 - 1.  One thread a query: a lower-bound binary search over
-// the keys (unsigned compares), then one label load on a hit.
+// the label + 1 of the first key equal to q, or 0 where none is or q is
+// the pad value 2^64 - 1.
 //
-// Bound by bytes: what a batch must read is the distinct 32-B sectors of
-// keys its searches visit, a label sector a hit, q and out (chip_smoke.py
-// phase 5 counts them from this run's queries).  A search is ~log2(N)
-// dependent loads (26 at config 2's 48M keys); the top levels are shared
-// by every query and stay in L2, the last few miss it, so the kernel waits
-// on latency more than on bandwidth.  Simple by design: a copy of the top
-// levels in shared memory, or sorting the queries first so that
-// neighbouring threads share paths, is work for a redesign.
+// Bound by bytes: what any search of a batch must read is q, out, the
+// key sector of each distinct lower-bound position and a label sector a
+// hit (chip_smoke.py phase 5 counts them from this run's queries).  A
+// lower-bound binary search of the whole array (the first form) made
+// ~log2(N) dependent loads a query, 26 at config 2's 48M keys: the top
+// levels hit L2, the last ~10 were random HBM reads each waiting on the
+// one before, so the kernel waited on latency.  This form puts a radix
+// directory in front of the search (lookup.build_index, made once at
+// load): the range [kmin, kmax] in 2^bits buckets of 2^shift values, and
+// dir[j] the index of bucket j's first key, 2^bits <= 2^22 int32 offsets
+// (16 MiB) that stay in the 50 MB L2 across batches.  A query loads
+// dir[j] and dir[j + 1] (one L2 sector), then runs a lower-bound binary
+// search of the bucket's keys alone (11.4 on average at config 2, 46 at
+// most), whose ~4 steps fall in the bucket's one or two 128-B lines, and
+// one label load on a hit, in place of 26 loads across the array.  What
+// is left is random 32-B sectors from HBM, ~4 a query (the bucket's and
+// the label's); ending the search in a scan of the bucket's last 8 or 16
+// keys, loads in flight together, was no faster.  Skew costs only time:
+// the search is a full binary search of any bucket.  Unsigned compares
+// throughout; a query outside [kmin, kmax] misses without a load, and an
+// index of pad keys alone has kmin > kmax.
 #define K9_THREADS 256
 
 __global__ void __launch_bounds__(K9_THREADS)
 lookup_kernel(const u64* __restrict__ keys, const int* __restrict__ labels1,
-              long long n, const u64* __restrict__ q, int* __restrict__ out,
-              long long Q) {
+              const int* __restrict__ dir, u64 kmin, u64 kmax, int shift,
+              const u64* __restrict__ q, int* __restrict__ out, long long Q) {
   long long i = (long long)blockIdx.x * K9_THREADS + threadIdx.x;
   if (i >= Q) return;
   u64 x = q[i];
   int lab = 0;
-  if (x != EMPTY64) {
-    long long lo = 0, hi = n;  // the first key >= x lies in [lo, hi]
-    while (lo < hi) {
+  if (x != EMPTY64 && x >= kmin && x <= kmax) {
+    long long j = shift < 64 ? (long long)((x - kmin) >> shift) : 0;
+    long long lo = __ldg(dir + j), end = __ldg(dir + j + 1), hi = end;
+    while (lo < hi) {  // the first key >= x lies in [lo, hi]
       long long mid = lo + ((hi - lo) >> 1);
       if (__ldg(keys + mid) < x)
         lo = mid + 1;
       else
         hi = mid;
     }
-    if (lo < n && __ldg(keys + lo) == x) lab = __ldg(labels1 + lo);
+    if (lo < end && __ldg(keys + lo) == x) lab = __ldg(labels1 + lo);
   }
   out[i] = lab;
 }
@@ -1903,21 +1914,31 @@ lookup_kernel(const u64* __restrict__ keys, const int* __restrict__ labels1,
 // in read_results' order.  Labels or read ids out of range are dropped.
 //
 // Bound by bytes: the two [Q] inputs read once and the [R, T+1] counts
-// written once.  The simple form: the launcher zeroes `counts`, one thread
-// a query adds with a global atomic (a read's queries lie together, and
-// most carry one label, so a warp's atomics often meet on one address:
-// that serialises in L2, and a warp-aggregated or shared-memory form is a
-// redesign's), then a warp a read scans its row's columns with K5's
-// top-2 step (warp_top2_columns).
+// written once.  Three steps: the launcher zeroes `counts`; the scatter
+// takes a query a thread; a warp a read scans its row's columns with K5's
+// top-2 step (warp_top2_columns).  A read's ~144 queries lie together and
+// most carry one label, so the first form's global atomic a query put a
+// warp's 32 adds on 1-3 addresses, where they serialise in L2 (13%
+// of its bound).  Here the lanes of a warp that share a (read, label)
+// counter find each other with __match_any_sync, and the group's lowest
+// lane adds the group's size once: one atomic a counter a warp.  Read ids
+// need not be sorted: a group is whatever lanes share a counter (the JAX
+// package's pad queries, read 0 at the batch's end, form their own).
 __global__ void __launch_bounds__(K9_THREADS)
 counts_flat_scatter_kernel(const int* __restrict__ labels1,
                            const int* __restrict__ read_id, long long Q,
                            long long R, int T1, int* __restrict__ counts) {
   long long i = (long long)blockIdx.x * K9_THREADS + threadIdx.x;
-  if (i >= Q) return;
-  int v = labels1[i], r = read_id[i];
-  if ((unsigned)v < (unsigned)T1 && r >= 0 && r < R)
-    atomicAdd(&counts[(long long)r * T1 + v], 1);
+  long long at = -1;  // the lane's counter, -1 for none; every lane of the
+  // warp reaches the match below, past Q too
+  if (i < Q) {
+    int v = labels1[i], r = read_id[i];
+    if ((unsigned)v < (unsigned)T1 && r >= 0 && r < R)
+      at = (long long)r * T1 + v;
+  }
+  unsigned group = __match_any_sync(0xffffffffu, (unsigned long long)at);
+  if (at >= 0 && (int)(threadIdx.x & 31) == __ffs(group) - 1)
+    atomicAdd(&counts[at], __popc(group));
 }
 
 __global__ void __launch_bounds__(K5_WARPS * 32)
@@ -2308,14 +2329,18 @@ int launch_counts_top2(const void* lab, long long R, long long W, int T1,
   return (int)cudaGetLastError();
 }
 
-// K9 over Q queries; n = 0 keys gives all misses.
-int launch_lookup(const void* keys, const void* labels1, long long n,
-                  const void* q, void* out, long long Q, void* stream) {
+// K9 over Q queries through the directory dir [2^bits + 1].  kmin > kmax
+// (an index of no key) gives all misses.
+int launch_lookup(const void* keys, const void* labels1, const void* dir,
+                  u64 kmin, u64 kmax, int shift, const void* q, void* out,
+                  long long Q, void* stream) {
   if (Q == 0) return 0;
   long long blocks = (Q + K9_THREADS - 1) / K9_THREADS;
-  if (n < 0 || blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  if (shift < 0 || shift > 64 || blocks > 0x7FFFFFFFLL)
+    return (int)cudaErrorInvalidValue;
   lookup_kernel<<<(unsigned)blocks, K9_THREADS, 0, (cudaStream_t)stream>>>(
-      (const u64*)keys, (const int*)labels1, n, (const u64*)q, (int*)out, Q);
+      (const u64*)keys, (const int*)labels1, (const int*)dir, kmin, kmax,
+      shift, (const u64*)q, (int*)out, Q);
   return (int)cudaGetLastError();
 }
 
@@ -2325,6 +2350,7 @@ int launch_counts_flat(const void* labels1, const void* read_id, long long Q,
                        void* ibest, void* best, void* isbest, void* sbest,
                        void* stream) {
   if (R == 0) return 0;
+  // whole blocks: every lane of a warp reaches the scatter's match
   long long blocks = (Q + K9_THREADS - 1) / K9_THREADS;
   if (T1 < 1 || R > 0x7FFFFFFFLL || Q < 0 || blocks > 0x7FFFFFFFLL)
     return (int)cudaErrorInvalidValue;

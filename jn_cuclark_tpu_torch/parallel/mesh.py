@@ -29,8 +29,9 @@ whole batch.  Every process packs the same batches, so the all-reduces pair
 up in order.  Only the db mode crosses processes.
 
 The flat path's sorted index (`shard_index`, packed=False) splits its keys
-in equal blocks over a one-axis mesh: each block runs the search K9 over
-the batch's queries, the blocks' labels are summed by `_reduce` (a key
+in equal blocks over a one-axis mesh, each with its own radix directory:
+each block runs the search K9 over the batch's queries, the blocks'
+labels are summed by `_reduce` (a key
 lies in one block), and K5's flat form scores on the first device.  It
 stays in one process.
 """
@@ -453,11 +454,13 @@ def shard_index(mesh: Mesh, keys: np.ndarray, labels1: np.ndarray,
     """The flat path's sorted index over a one-axis mesh: keys (u64,
     ascending) and labels1 padded to a multiple of the mesh size
     (lookup.pad_index) and split into equal contiguous blocks, block i on
-    device i.  Returns (key blocks, label blocks, query_fn);
-    query_fn(key blocks, label blocks, q, qread, n_reads) -> (total,
-    ibest, best, sbest, counts) runs K9 on every block, sums the labels on
-    the first device (at most one block holds a query's key) and scores
-    there with K5's flat form."""
+    device i, a lookup.FlatIndex with its own radix directory (a block's
+    range ends at its last key below the pad value, and a block of pad
+    keys alone misses everything).  Returns (blocks, query_fn);
+    query_fn(blocks, q, qread, n_reads) -> (total, ibest, best, sbest,
+    counts) runs K9 on every block, sums the labels on the first device
+    (at most one block holds a query's key) and scores there with K5's
+    flat form."""
     if mesh.collective:
         raise NotImplementedError(
             "the flat sorted-array path (packed=False) on a mesh across "
@@ -469,19 +472,18 @@ def shard_index(mesh: Mesh, keys: np.ndarray, labels1: np.ndarray,
                                      np.asarray(labels1, dtype=np.int32),
                                      len(devs))
     per = len(keys) // len(devs)
-    key_blocks = [torch.from_numpy(keys[i * per : (i + 1) * per]
-                                   .view(np.int64)).to(d)
-                  for i, d in enumerate(devs)]
-    label_blocks = [torch.from_numpy(labels1[i * per : (i + 1) * per]).to(d)
-                    for i, d in enumerate(devs)]
+    blocks = [lookup.build_index(
+        torch.from_numpy(keys[i * per : (i + 1) * per].view(np.int64)).to(d),
+        torch.from_numpy(labels1[i * per : (i + 1) * per]).to(d))
+        for i, d in enumerate(devs)]
     home = devs[0]
 
-    def query_fn(key_blocks, label_blocks, q, qread, n_reads: int):
+    def query_fn(blocks, q, qread, n_reads: int):
         with torch.inference_mode():
-            lab = _reduce([lookup.lookup_labels(kb, lb, q.to(kb.device))
-                           for kb, lb in zip(key_blocks, label_blocks)], home)
+            lab = _reduce([lookup.lookup_labels(ix, q.to(ix.keys.device))
+                           for ix in blocks], home)
             counts, total, ib, b, _, sb = score.counts_flat(
                 lab, qread.to(home), n_reads, n_targets)
             return total, ib, b, sb, counts
 
-    return key_blocks, label_blocks, query_fn
+    return blocks, query_fn

@@ -12,31 +12,44 @@ D2H fetch of its results, which is where device time shows on the host.
 `trace(trace_dir)` captures a run with `torch.profiler` (`classify
 --trace-dir DIR`) and writes it to DIR as a Chrome trace
 (`<host>_<pid>.<ms>.pt.trace.json`): the host's operator calls and, on a
-CUDA device, every kernel with its device time.  In a process that has
-run on the card for a while, a profiler session mostly drops its first
-kernels, a count that grows with the process's age (on an H100 about
-one kernel for each 13 s of age: 41 after nine minutes) and does not
-shrink when the device idles after the window opens or between the
-first kernel and the rest; a second burst in the same session is kept
-(chip_trace_probe.py, PERF.md §6).  So on CUDA `trace` first runs
-TRACE_WARMUP small kernels of its own, waits for them and idles
-TRACE_LEAD_S before the block: the dropped kernels are the warm-up's,
-which the trace shows as `add_` kernels ahead of the run's.  A limit
-remains: now and then a session loses all of its kernels, or a span at
-its end, while every launch call is recorded (cause not found, PERF.md
-§7).  Trace from a fresh process, as `classify --trace-dir` does.
+CUDA device, every kernel with its device time.
+
+A profiler session on the card can lose kernels.  In a process that has
+run on the card for a while, a session mostly drops its first kernels, a
+count that grows with the process's age (on an H100 about one kernel for
+each 13 s of age: 41 after nine minutes) and does not shrink when the
+device idles after the window opens; a second burst in the same session
+is kept (chip_trace_probe.py, PERF.md §6).  Now and then a session loses
+all of its kernels, or a span at its end, while every launch call is
+recorded.  The cause is not found.  So every CUDA session of the port
+goes through `cuda_session`: it runs TRACE_WARMUP small kernels of its
+own, waits for them and idles TRACE_LEAD_S before the block (the dropped
+first kernels are the warm-up's, which a trace shows as `add_` kernels
+ahead of the run's), and after the block TRACE_MARKERS closing markers,
+the same `add_`.  Once the session ends `check_session` matches each
+launch call to its kernel by correlation id: a session is whole where
+the last warm-up kernel, every kernel of the block and every closing
+marker are there.  `trace` writes a partial trace all the same and says
+on stderr how many kernels it lost; chip_smoke.py's kernel times retake a
+session that is not whole.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import socket
+import sys
 import threading
 import time
 
 TRACE_WARMUP = 512  # kernels a CUDA trace runs before its block: more
 # than a session drops in a process two hours old
 TRACE_LEAD_S = 0.05  # the wait between the warm-up and the block
+TRACE_MARKERS = 32  # closing marker kernels a CUDA session runs after it
+# the host calls that launch a kernel, by the prefix of their trace name
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")
 
 
 class Phases:
@@ -96,32 +109,134 @@ def maybe_phase(name: str, nbytes: int = 0):
             yield
 
 
+def _launch_calls(events: list) -> list:
+    """A Chrome trace's kernel launch calls, in host order."""
+    return sorted((e for e in events if e.get("cat") == "cuda_runtime"
+                   and e.get("name", "").startswith(_LAUNCH_CALLS)),
+                  key=lambda e: e["ts"])
+
+
+def launches(events: list) -> list:
+    """The correlation ids of a Chrome trace's kernel launch calls, in
+    host order."""
+    return [e["args"]["correlation"] for e in _launch_calls(events)]
+
+
+def kept_kernels(events: list) -> set:
+    """The correlation ids of a Chrome trace's kernel events."""
+    return {e["args"].get("correlation") for e in events
+            if e.get("cat") == "kernel"}
+
+
+def span_kept(launched: list, kept: set) -> dict:
+    """Of the kernels of the launches `launched` (correlation ids in host
+    order): how many reached the trace (`kept`), and how many launches
+    before the first kept one and after the last were lost."""
+    at = [i for i, c in enumerate(launched) if c in kept]
+    return dict(kept=len(at), lost_first=at[0] if at else len(launched),
+                lost_last=len(launched) - 1 - at[-1] if at else 0)
+
+
+def check_session(events: list, warmup: int = TRACE_WARMUP,
+                  markers: int = TRACE_MARKERS) -> dict:
+    """Whether a `cuda_session`'s Chrome trace events are whole: its
+    launches are `warmup` warm-up kernels, the block's, then `markers`
+    closing markers.  Returns whole (the last warm-up kernel, every kernel
+    of the block and every marker kept), warmup_kept (the last warm-up
+    kernel's), markers_lost, and of the block: launched, kept, lost_first
+    and lost_last (span_kept)."""
+    ids = launches(events)
+    kept = kept_kernels(events)
+    if len(ids) < warmup + markers:  # launch calls missing: nothing holds
+        return dict(whole=False, warmup_kept=False, markers_lost=markers,
+                    launched=0, kept=0, lost_first=0, lost_last=0)
+    block = ids[warmup:len(ids) - markers]
+    span = span_kept(block, kept)
+    warmup_kept = warmup == 0 or ids[warmup - 1] in kept
+    markers_lost = sum(c not in kept for c in ids[len(ids) - markers:])
+    return dict(whole=warmup_kept and not markers_lost
+                and span["kept"] == len(block),
+                warmup_kept=warmup_kept, markers_lost=markers_lost,
+                launched=len(block), **span)
+
+
+def block_events(events: list, warmup: int = TRACE_WARMUP,
+                 markers: int = TRACE_MARKERS) -> list:
+    """The device events (kernels, memsets, copies) of a `cuda_session`'s
+    block: those of the host calls made between its last warm-up launch
+    and its first closing marker."""
+    calls = _launch_calls(events)
+    if len(calls) < warmup + markers:
+        return []
+    t0 = calls[warmup - 1]["ts"] if warmup else float("-inf")
+    t1 = calls[len(calls) - markers]["ts"] if markers else float("inf")
+    ids = {e["args"].get("correlation") for e in events
+           if e.get("cat") == "cuda_runtime" and t0 < e["ts"] < t1}
+    return [e for e in events if e.get("cat") in (
+        "kernel", "gpu_memset", "gpu_memcpy")
+        and e["args"].get("correlation") in ids]
+
+
+@contextlib.contextmanager
+def cuda_session(path: str, device=None):
+    """Profile the block on a CUDA device with torch.profiler (CPU and
+    CUDA activity) and write its Chrome trace to `path`: TRACE_WARMUP
+    `add_` kernels and TRACE_LEAD_S of idle before the block, the device
+    synchronised after it, then TRACE_MARKERS closing markers.  Yields a
+    dict that, once the block and the session end, holds check_session's
+    verdict and the trace's `events`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    rec: dict = {}
+    # made before the session opens, on the current device by default
+    w = torch.zeros(1, device="cuda" if device is None else device)
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_WARMUP):
+            w.add_(1)
+        torch.cuda.synchronize(device)
+        time.sleep(TRACE_LEAD_S)
+        yield rec
+        torch.cuda.synchronize(device)
+        for _ in range(TRACE_MARKERS):
+            w.add_(1)
+        torch.cuda.synchronize(device)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    rec.update(check_session(events), events=events)
+
+
 @contextlib.contextmanager
 def trace(trace_dir: str | None, cuda: bool = False):
     """Trace the block with torch.profiler into trace_dir (created where
-    missing): CPU activity, plus CUDA activity where `cuda` is set, with
-    TRACE_WARMUP kernels on the current device and TRACE_LEAD_S of idle
-    before the block, and the device synchronized after it.  A no-op
-    where trace_dir is empty."""
+    missing) as `<host>_<pid>.<ms>.pt.trace.json`: CPU activity, or
+    through `cuda_session` where `cuda` is set, on the current device.
+    Yields a dict, filled on a CUDA session's end with check_session's
+    verdict; a session that is not whole still writes its trace and says
+    on stderr what it lost.  A no-op where trace_dir is empty."""
+    rec: dict = {}
     if not trace_dir:
-        yield
+        yield rec
         return
-    import torch
-    from torch.profiler import (ProfilerActivity, profile,
-                                tensorboard_trace_handler)
-
     os.makedirs(trace_dir, exist_ok=True)
-    activities = [ProfilerActivity.CPU]
+    path = os.path.join(trace_dir, f"{socket.gethostname()}_{os.getpid()}."
+                        f"{int(time.time() * 1000)}.pt.trace.json")
     if cuda:
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(trace_dir)):
-        if cuda:
-            w = torch.zeros(1, device="cuda")
-            for _ in range(TRACE_WARMUP):
-                w.add_(1)
-            torch.cuda.synchronize()
-            time.sleep(TRACE_LEAD_S)
-        yield
-        if cuda:
-            torch.cuda.synchronize()
+        with cuda_session(path) as rec:
+            yield rec
+        if not rec["whole"]:
+            print(f"trace: the profiler lost kernels ({rec['kept']} of the "
+                  f"run's {rec['launched']} kept, {rec['markers_lost']} of "
+                  f"{TRACE_MARKERS} closing markers lost, the last warm-up "
+                  f"kernel {'kept' if rec['warmup_kept'] else 'lost'}): "
+                  f"{path} is partial", file=sys.stderr)
+        rec.pop("events")
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        yield rec
+    prof.export_chrome_trace(path)

@@ -16,7 +16,7 @@ import chip_smoke
 from jn_cuclark_tpu_torch import engine
 from jn_cuclark_tpu_torch.engine import Classifier
 from jn_cuclark_tpu_torch.io import dbformat
-from jn_cuclark_tpu_torch.ops import kernels, radix_table, score
+from jn_cuclark_tpu_torch.ops import kernels, lookup, radix_table, score
 from jn_cuclark_tpu_torch.params import Profile
 from jn_cuclark_tpu_torch.utils import native
 
@@ -33,15 +33,15 @@ def dev():
 def test_kernels_equal_their_twins(dev):
     kernels.reset_launches()
     # + 2: the two kshift = 1 tables (big_tables), each probed twice;
-    # + 6 + 1 + 6: K9's cases (each searched twice) and its 48M-key index,
-    # K5's flat form's cases
+    # + 13 + 1 + 9: K9's cases (each searched for its queries and for its
+    # stored keys) and its 48M-key index, K5's flat form's cases
     assert chip_smoke.check_kernels(dev) == (
-        21 + 10 + 45 + 12 + 12 + 13 + 29 + 9 + 2 + 6 + 1 + 6)
+        21 + 10 + 45 + 12 + 12 + 13 + 29 + 9 + 2 + 13 + 1 + 9)
     assert kernels.LAUNCHES == {"window_canonicals": 24, "probe": 10 + 2,
                                 "top2": 45, "sort_top2": 12, "counts_top2": 12,
                                 "aggregate": 13, "probe_chunk": 29,
-                                "probe_dense": 18 + 2, "lookup": 12 + 1,
-                                "counts_flat": 6, "top2 small": 13,
+                                "probe_dense": 18 + 2, "lookup": 13 * 2 + 1,
+                                "counts_flat": 9, "top2 small": 13,
                                 "top2 hash": 15, "top2 block": 17}
 
 
@@ -100,12 +100,17 @@ def test_flat_wrappers_reject_bad_input(dev):
     keys = torch.arange(10, dtype=torch.int64, device=dev)
     labels1 = torch.ones(10, dtype=torch.int32, device=dev)
     q = torch.arange(5, dtype=torch.int64, device=dev)
+    index = lookup.build_index(keys, labels1)
     with pytest.raises(ValueError):  # labels of another length
-        kernels.lookup(keys, labels1[:9], q)
+        kernels.lookup(index._replace(labels1=labels1[:9]), q)
     with pytest.raises(TypeError):  # int32 queries
-        kernels.lookup(keys, labels1, q.int())
+        kernels.lookup(index, q.int())
     with pytest.raises(ValueError):  # keys on the CPU
-        kernels.lookup(keys.cpu(), labels1, q)
+        kernels.lookup(index._replace(keys=keys.cpu()), q)
+    with pytest.raises(ValueError):  # offsets of no 2^bits + 1
+        kernels.lookup(index._replace(offsets=index.offsets[[0, 1, 2, 2]]), q)
+    with pytest.raises(ValueError):  # too few buckets for the key range
+        kernels.lookup(index._replace(offsets=index.offsets[:2]), q)
     lab, rid = q.int(), torch.zeros(5, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         kernels.counts_flat(lab, rid[:4], 1, 16)
@@ -114,7 +119,8 @@ def test_flat_wrappers_reject_bad_input(dev):
     with pytest.raises(TypeError):
         kernels.counts_flat(lab.long(), rid, 1, 16)
     assert all(v == 0 for v in kernels.LAUNCHES.values())
-    assert kernels.lookup(keys[:0], labels1[:0], q).tolist() == [0] * 5
+    empty = lookup.build_index(keys[:0], labels1[:0])
+    assert kernels.lookup(empty, q).tolist() == [0] * 5
     counts, total, *_ = kernels.counts_flat(lab[:0], rid[:0], 3, 4)
     assert counts.tolist() == [[0] * 5] * 3 and total.tolist() == [0] * 3
     assert kernels.LAUNCHES["lookup"] == kernels.LAUNCHES["counts_flat"] == 1
@@ -124,7 +130,9 @@ def test_host_paths_on_the_card(dev, tmp_path):
     """chip_smoke.py's phase 8 at a small scale on the card (3 genomes x
     16,000 bp, 1,500 reads): every flat path's CSV byte-equal to the
     native resident run's, each launched K9 and K5's flat form, and a
-    trace kept every kernel of a burst at its start."""
+    trace kept every kernel of a burst, and both `classify --trace-dir`
+    sessions, in sessions the check found whole (taken again where it
+    did not)."""
     scale = tmp_path / "scale"
     scale.mkdir()
     prof = Profile(name="t", htsize=1048573, light=False, default_k=31)
@@ -139,6 +147,12 @@ def test_host_paths_on_the_card(dev, tmp_path):
     assert all(host["host trace"]["kernels_named"].values())
     burst = host["host trace"]["burst"]
     assert burst["trace_kept"] == burst["launched"] == chip_smoke.TRACE_BURST
+    assert burst["trace_retakes"] <= chip_smoke.TRACE_RETAKES
+    for key in ("check", "check_in_process"):
+        assert host["host trace"][key]["whole"], key
+        assert host["host trace"][key]["launched"] > 0, key
+    assert max(host["host trace"]["retakes"], host["host trace"][
+        "retakes_in_process"]) <= chip_smoke.TRACE_RETAKES
     for path, need in chip_smoke.PATH_KERNELS.items():
         if path.startswith("host"):
             assert all(launches[path][n] > 0 for n in need), path

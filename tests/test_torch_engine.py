@@ -263,7 +263,7 @@ def test_library_rejects_modes_not_ported(random_db, tmp_path):
     # the flat sorted-array path (packed=False), formerly rejected here,
     # now classifies: it writes the resident packed run's bytes
     flat = Classifier.load(*args, device="cpu", packed=False)
-    assert flat.table is None and flat.keys is not None
+    assert flat.table is None and flat.index is not None
     assert (b"".join(flat.classify_bytes(fa)[0])
             == b"".join(resident.classify_bytes(fa)[0]))
     # paired and extended runs, formerly rejected here (A6), now classify:

@@ -22,9 +22,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_phases_on_cpu(tmp_path, monkeypatch):
     dev = torch.device("cpu")
-    # + 6 + 6: K9's and K5's flat form's cases
+    # + 13 + 9: K9's and K5's flat form's cases
     assert chip_smoke.check_kernels(dev, big_tables=False) == (
-        21 + 10 + 45 + 12 + 12 + 13 + 29 + 9 + 6 + 6)
+        21 + 10 + 45 + 12 + 12 + 13 + 29 + 9 + 13 + 9)
     assert chip_smoke.check_goldens(dev, str(tmp_path)) == 6
     assert chip_smoke.check_golden_dbs(dev, str(tmp_path)) == 3
     dense = chip_smoke.check_dense_targets(dev, str(tmp_path), n_reads=40)
@@ -92,14 +92,25 @@ def test_phases_on_cpu(tmp_path, monkeypatch):
     assert host["host flat"]["reads"] == 1500
     assert host["host flat mesh"]["reads"] == host["subset_reads"] == 700
     assert host["host flat extended"]["reads"] == 1500
-    assert host["host flat mesh"]["device_bytes"] == 12 * (
-        m["db_keys"] + m["db_keys"] % 2)  # padded to the mesh's 2 blocks
-    assert host["host flat"]["device_bytes"] == 12 * m["db_keys"]
+    # keys and labels (padded to the mesh's 2 blocks) and each directory's
+    # 2^bits + 1 offsets, bits = ceil(log2 n) - 3 for n keys
+    bits = (m["db_keys"] - 1).bit_length() - 3
+    half = -(-m["db_keys"] // 2)
+    assert host["host flat mesh"]["device_bytes"] == 12 * 2 * half + 4 * (
+        2 ** ((half - 1).bit_length() - 3) + 1) + 4 * (
+        2 ** ((m["db_keys"] - half - 1).bit_length() - 3) + 1)
+    assert host["host flat"]["device_bytes"] == 12 * m["db_keys"] + 4 * (
+        2 ** bits + 1)
     assert host["host trace"]["trace_files"] == 1
     assert host["host trace"]["trace_events"] > 0
     assert host["host trace"]["reads"] == 600
     assert host["host trace"]["device_bytes"] == clf.table.nbytes
-    assert host["host trace"]["burst"] is None  # the card's check
+    # the card's checks
+    assert host["host trace"]["burst"] is None
+    assert host["host trace"]["check"] is None
+    assert host["host trace"]["check_in_process"] is None
+    assert host["host trace"]["retakes"] == 0
+    assert host["host trace"]["retakes_in_process"] == 0
     for path in ("classify", "extended", "paired"):
         assert set(m["phase_s"][path]) >= {"scan", "pack", "dispatch",
                                            "device_wait", "format"}
@@ -150,6 +161,22 @@ def test_phases_on_cpu(tmp_path, monkeypatch):
     assert fb["reads"] == 1500 and fb["index_keys"] == m["db_keys"]
     assert 0 < fb["search"]["hits"] <= fb["search"]["queries"] == fb["queries"]
     assert fb["search"]["compares"] >= fb["queries"]
+    assert 0 < fb["search"]["floor_bytes"] <= fb["search"]["bytes"]
+    # the directory: 4-8 keys a bucket on average, its sectors and bounds
+    fd = fb["directory"]
+    assert (fd["bits"], fd["buckets"]) == (bits, 2 ** bits)
+    assert fd["mean_keys"] == pytest.approx(m["db_keys"] / 2 ** bits)
+    assert 4 < fd["mean_keys"] <= 8
+    assert fd["max_keys"] >= fd["mean_keys"] and 0 <= fd["empty_share"] < 1
+    assert fd["directory_bytes"] == 4 * (2 ** bits + 1)
+    assert fd["dir_sectors"] > 0 and fd["bucket_sectors"] > 0
+    # K9's bound is the floor of its work: no more than a whole-array
+    # search's (equal here, where the searches visit every key sector)
+    assert 0 < timing["lookup"]["bound_ms"] <= fb["search"]["bound_ms"]
+    assert fd["bound_ms"] > 0 and fd["build_s"] > 0
+    # no session on the CPU: nothing retaken
+    assert set(shape["retakes"]) == set(timing) | {"mask"}
+    assert not any(shape["retakes"].values())
 
 
 def test_kshift_case_plans_kshift_1():
