@@ -146,7 +146,18 @@ raises and exits non-zero before the result lines:
   8 host paths  the flat sorted-array path (packed=False, K9 + K5's flat
              form) on phase 4's DB and reads, without warm-up runs, each
              CSV byte-equal to phase 4's: (a) plain and --extended on the
-             400,000 reads; (b) over a mesh of the card repeated 4 times.
+             400,000 reads; (b) over a mesh of the card repeated 4 times;
+             (c) on process meshes, its processes this script run as
+             `chip_smoke.py flat-child`: (c1) two processes with
+             CLARK_TPU_DIST_BACKEND=gloo (two ranks share the card), a
+             mesh of the card 4 times with owners [0, 0, 1, 1] (two
+             blocks a process, summed on the card, then one all_reduce a
+             batch), the 400,000 reads plain and --extended, both ranks'
+             CSVs phase 4's; (c2) one process over NCCL, a world of one,
+             on phase 3's golden DB and reads (single-end, FASTQ,
+             --extended, paired; equal to tests/golden); one JSON line a
+             path: each process's reads/s, load seconds, index bytes on
+             the card, all_reduce calls, bytes and seconds, launches.
              (f) a burst of 200 kernels inside a `profiling.trace` in
              this long-lived process, in a session its check finds whole
              (taken again up to 3 times), every one in its trace (and how
@@ -2816,6 +2827,129 @@ def _device_bytes(clf: Classifier) -> int:
                      for t in (ix.keys, ix.labels1, ix.offsets)))
 
 
+def flat_child(out_dir: str, spec: str) -> int:
+    """One process of phase 8 (c): joins the world (parallel/dist.py, from
+    the CLARK_TPU_* variables), loads the flat path (packed=False) on a
+    process mesh of this process's card repeated once an entry of the
+    spec's owners, classifies each of the spec's runs and writes
+    <out_dir>/p<rank>.json: its load seconds, the blocks and the index
+    bytes it holds on the card, and each run's reads, wall seconds, kernel
+    launches and phase timers (all_reduce: calls, bytes, seconds).  Run as
+    `chip_smoke.py flat-child <out_dir> <spec JSON>`; each run's CSV goes
+    to its `out` with `_r<rank>` added."""
+    from jn_cuclark_tpu_torch.parallel import dist
+
+    spec = json.loads(spec)
+    backend = dist.initialize(device=spec["device"])
+    rank = dist.process_index()
+    owners = spec["owners"]
+    mesh = Mesh([dist.local_device(spec["device"])] * len(owners), ("db",),
+                owners=owners)
+    t = time.perf_counter()
+    clf = Classifier.load(spec["db"], spec["targets"],
+                          Profile(**spec["profile"]), spec["k"],
+                          packed=False, mesh=mesh)
+    rec = dict(pid=rank, backend=backend, load_s=time.perf_counter() - t,
+               blocks=len(clf.index), device_bytes=_device_bytes(clf),
+               runs=[])
+    for run in spec["runs"]:
+        kernels.reset_launches()
+        with profiling.collect() as ph:
+            t = time.perf_counter()
+            stats = clf.classify_file(run["reads"], f"{run['out']}_r{rank}",
+                                      paired_path=run["mate"],
+                                      extended=run["extended"])
+            wall = time.perf_counter() - t
+        rec["runs"].append(dict(
+            path=run["path"], reads=stats["reads"], wall_s=wall,
+            launches=dict(kernels.LAUNCHES), phase_s=dict(ph.totals),
+            phase_calls=dict(ph.counts), phase_bytes=dict(ph.nbytes)))
+    dist.shutdown()
+    with open(os.path.join(out_dir, f"p{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def run_flat_processes(dev, tmp: str, prof: Profile, launches: dict,
+                       golden_dir: str) -> dict:
+    """Phase 8 (c): the flat path on process meshes, in processes of this
+    script (`flat_child`): (c1) two ranks over gloo, a mesh of `dev` 4
+    times with owners [0, 0, 1, 1], on phase 4's DB and reads in tmp,
+    plain and --extended against phase 4's CSVs; (c2) a world of one
+    over the device's own backend (NCCL on the card) on phase 3's golden
+    DB in golden_dir and its reads, against tests/golden.  Every rank's
+    CSV must equal its reference.  Records launches under each path's
+    name (summed over ranks and runs) and returns each path's record:
+    each process's load seconds, blocks, index bytes on the card, and
+    each run's reads/s and all_reduce calls, bytes and seconds."""
+    me = [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "flat-child"]
+    m = {}
+
+    def world(name, n, spec, **env):
+        work = os.path.join(tmp, name.replace(" ", "_"))
+        os.makedirs(work)
+        port = _free_port()
+        outs = _cluster_procs(
+            [me + [work, json.dumps(dict(spec, device=dev.type))]] * n,
+            [_cluster_env(CLARK_TPU_NUM_PROCESSES=n, CLARK_TPU_PROCESS_ID=i,
+                          CLARK_TPU_COORDINATOR=f"127.0.0.1:{port}", **env)
+             for i in range(n)])
+        for rc, out in outs:
+            if rc:
+                raise AssertionError(f"{name}: rc {rc}\n{out[-3000:]}")
+        recs = []
+        for pid in range(n):
+            with open(os.path.join(work, f"p{pid}.json")) as f:
+                recs.append(json.load(f))
+        for run in spec["runs"]:
+            for pid in range(n):
+                _same_file(name, f"{run['out']}_r{pid}.csv", run["want"])
+        for path in dict.fromkeys(run["path"] for run in spec["runs"]):
+            launches[path] = {k: sum(r["launches"][k] for rec in recs
+                                     for r in rec["runs"]
+                                     if r["path"] == path)
+                              for k in kernels.LAUNCHES}
+        m[name] = dict(path=name, backend=recs[0]["backend"], processes=[
+            dict(pid=rec["pid"], load_s=rec["load_s"], blocks=rec["blocks"],
+                 device_bytes=rec["device_bytes"], runs=[dict(
+                     path=r["path"], reads=r["reads"], wall_s=r["wall_s"],
+                     reads_per_s=r["reads"] / r["wall_s"],
+                     all_reduce=dict(
+                         calls=r["phase_calls"].get("all_reduce", 0),
+                         bytes=r["phase_bytes"].get("all_reduce", 0),
+                         seconds=r["phase_s"].get("all_reduce", 0.0)),
+                     batches=r["phase_calls"].get("dispatch", 0),
+                     launches={k: c for k, c in r["launches"].items() if c},
+                     phase_s=r["phase_s"]) for r in rec["runs"]])
+            for rec in recs])
+        print(json.dumps(m[name]), flush=True)
+
+    # (c1) two ranks over gloo on the card, two blocks each
+    runs = [dict(path=path, reads=os.path.join(tmp, "reads.fa"), mate=None,
+                 extended=bool(suffix),
+                 out=os.path.join(tmp, f"flat_proc{suffix}"),
+                 want=os.path.join(tmp, f"res{suffix}.csv"))
+            for path, suffix in (("host flat processes", ""),
+                                 ("host flat processes extended", "_ext"))]
+    world("host flat processes", 2, dict(
+        owners=[0, 0, 1, 1], db=tmp, targets=os.path.join(tmp, "targets.txt"),
+        profile=dataclasses.asdict(prof), k=prof.default_k, runs=runs),
+        CLARK_TPU_DIST_BACKEND="gloo")
+    # (c2) a world of one over the device's backend, phase 3's golden DB
+    _, _, _, gprof, k, *_ = GOLDENS[0]
+    runs = [dict(path="host flat one process", reads=os.path.join(GOLD, r),
+                 mate=mate and os.path.join(GOLD, mate), extended=ext,
+                 out=os.path.join(tmp, f"flat_one_{i}"),
+                 want=os.path.join(GOLD, golden))
+            for i, (db, _, _, _, _, r, mate, ext, golden) in enumerate(
+                GOLDENS) if db == GOLDENS[0][0]]
+    world("host flat one process", 1, dict(
+        owners=[0], db=os.path.join(golden_dir, "db"),
+        targets=os.path.join(golden_dir, "targets.txt"),
+        profile=dataclasses.asdict(gprof), k=k, runs=runs))
+    return m
+
+
 def _head(path: str, n: int, out: str) -> str:
     """The first n records of a two-line-per-record FASTA, written to out."""
     with open(path, "rb") as f:
@@ -2901,13 +3035,15 @@ def trace_burst(dev, tmp: str) -> dict:
 
 
 def run_host_paths(dev, tmp: str, prof: Profile, flat: Classifier,
-                   launches: dict, tools_dir: str, mesh_n: int = 4,
-                   sub: int | None = None):
+                   launches: dict, tools_dir: str, golden_dir: str,
+                   mesh_n: int = 4, sub: int | None = None):
     """Phase 8: the flat sorted-array path (packed=False; `flat`, phase
     5's classifier) on phase 4's DB and reads, each CSV byte-equal to
     phase 4's (no warm-up runs): (a) plain and extended; (b) over a mesh
     of `dev` repeated mesh_n times, on the first `sub` reads where given
-    (against the first `sub` rows of phase 4's CSV).  (f) on the card,
+    (against the first `sub` rows of phase 4's CSV); (c) on process
+    meshes (`run_flat_processes`; phase 3's golden DB in golden_dir), on
+    every read.  (f) on the card,
     `trace_burst`, whose `profiling.trace` must keep every kernel; then
     `classify --trace-dir` on phase 6's config-3 reads, in this process
     (the kernels named recorded) and in a process of its own, whose trace
@@ -2951,6 +3087,7 @@ def run_host_paths(dev, tmp: str, prof: Profile, flat: Classifier,
                                        mesh=mesh)
     path("host flat mesh", clf, "plain" if sub is None else "sub")
     del clf
+    m.update(run_flat_processes(dev, tmp, prof, launches, golden_dir))
 
     # (f) a trace's kernels at its ends (utils/profiling.py): a burst in
     # this long-lived process, where the card's stamps drift the most
@@ -3149,7 +3286,8 @@ def main() -> int:
 
         t = time.perf_counter()
         host = run_host_paths(dev, scale_dir, params.FULL, flat, launches,
-                              os.path.join(tmp, "tools"))
+                              os.path.join(tmp, "tools"),
+                              os.path.join(tmp, "golden0"))
         check_launches(launches)
         _phase("8 host paths", t, **{key: v for key, v in host.items()
                                      if not isinstance(v, dict)})
@@ -3212,6 +3350,9 @@ PATH_KERNELS = {
     "host flat": {"lookup", "counts_flat"},
     "host flat extended": {"lookup", "counts_flat"},
     "host flat mesh": {"lookup", "counts_flat"},
+    "host flat processes": {"lookup", "counts_flat"},
+    "host flat processes extended": {"lookup", "counts_flat"},
+    "host flat one process": {"lookup", "counts_flat"},
     "host trace": {"window_canonicals", "probe", *_SMALL},
 }
 
@@ -3230,4 +3371,6 @@ def check_launches(launches: dict):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["cli-child"]:  # a process of phase 7 or 8
         sys.exit(cli_child(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["flat-child"]:  # a process of phase 8 (c)
+        sys.exit(flat_child(*sys.argv[2:4]))
     sys.exit(main())

@@ -30,18 +30,17 @@ several samples through each chunk upload.
 Over several devices (`mesh=`, parallel/mesh.py): mesh_mode="db" shards the
 table's rows over the mesh (each shard's range optionally cycled), "dp"
 puts the table on every device and splits each batch's rows, and a
-two-axis mesh does both.  A mesh across processes (db mode only) ends each
-batch in collectives that every process issues in one order, so such a
-Classifier takes one classify call at a time.
+two-axis mesh does both.  A mesh across processes (db mode, or the flat
+path) ends each batch in collectives that every process issues in one
+order, so such a Classifier takes one classify call at a time.
 
 packed=False takes the flat sorted-array path instead of the radix table:
 the DB's keys sorted on the device with their radix directory
 (ops/lookup.py), each batch's canonical windows computed on the host with
-numpy (io/fasta.parse_reads,
-`flat_queries`), searched by K9 and scored by K5's flat form
-(`_query_single`; over a one-axis mesh, parallel/mesh.shard_index), each
-row formatted in Python (`_format_row`, byte-identical to the native
-formatter).
+numpy (io/fasta.parse_reads, `flat_queries`), searched by K9 and scored by
+K5's flat form (`_query_single`; over any mesh, across processes too and
+whatever `mesh_mode`, parallel/mesh.shard_index), each row formatted in
+Python (`_format_row`, byte-identical to the native formatter).
 
 Every other path runs the native host runtime, and a native runtime that
 fails to build raises.  The JAX package's `use_native=False` (its numpy
@@ -327,7 +326,7 @@ class Classifier:
     """CLARK classifier: the radix table resident on one device (standard
     or dense layout) or streamed from the host in cycles, or spread over
     the devices of a mesh (parallel/mesh.py); with packed=False the flat
-    sorted index instead, on one device or over a one-axis mesh."""
+    sorted index instead, on one device or over a mesh."""
 
     dense_table = None  # the host DenseTable when the dense layout engaged
     sharded = None  # the ShardedRadixTable of a db mesh
@@ -356,9 +355,10 @@ class Classifier:
         if mesh_mode not in ("dp", "db"):
             raise ValueError(f"mesh_mode must be 'dp' or 'db', got "
                              f"{mesh_mode!r}")
-        if mesh is not None and mesh.collective and mesh_mode != "db":
+        if packed and mesh is not None and mesh.collective and (
+                mesh_mode != "db"):
             # each process of a dp mode would classify other reads than
-            # its peers
+            # its peers; the flat path shards its index whatever the mode
             raise ValueError("a mesh across processes runs mesh_mode='db' "
                              "(the table's rows sharded over the world)")
         self.profile = profile
@@ -502,7 +502,8 @@ class Classifier:
     def _load_flat(self, canonical, labels):
         """The flat path's sorted index (lookup.prepare_index; labels + 1)
         with its radix directory (lookup.build_index) on the device, or
-        its blocks, each with its directory, over a one-axis mesh."""
+        over a mesh this process's blocks, each with its directory
+        (parallel/mesh.shard_index)."""
         keys, labels1 = lookup.prepare_index(canonical, labels)
         self.table = None
         self.db_cycles = 1  # the index stays resident: cycles do not apply
@@ -1327,7 +1328,9 @@ class Classifier:
         time the search K9 and K5's flat form (`query_fn`), and the Python
         format.  A batch holds at most max_queries windows and max_reads
         reads (capped to DENSE_COUNTS_BYTES of counts); a read of more
-        windows than max_queries raises."""
+        windows than max_queries raises.  A batch is one query_fn call
+        (one all-reduce on a process mesh), and its cuts depend only on
+        the reads and the plan, so every process issues the same calls."""
         qvals, rid, woff = flat_queries(rs, self.k)
         norm = rs.read_lengths - (NBN if paired else 0)
         names = [rs.name(i) for i in range(rs.n_reads)]

@@ -26,14 +26,17 @@ of the table in its host memory), and the batch's labels, summed over its
 own shards, are summed over the world by one all_reduce (`_all_reduce`)
 before the miss mask and the scoring, which every process runs on the
 whole batch.  Every process packs the same batches, so the all-reduces pair
-up in order.  Only the db mode crosses processes.
+up in order.  The db mode and the flat path cross processes.
 
 The flat path's sorted index (`shard_index`, packed=False) splits its keys
-in equal blocks over a one-axis mesh, each with its own radix directory:
-each block runs the search K9 over the batch's queries, the blocks'
-labels are summed by `_reduce` (a key
-lies in one block), and K5's flat form scores on the first device.  It
-stays in one process.
+in equal blocks over the mesh's first axis, as the JAX package's shard_map
+does (a two-axis mesh's second axis repeats the blocks, so its first
+column holds them), each with its own radix directory: each block runs the
+search K9 over the batch's queries, the blocks' labels are summed by
+`_reduce` (a key lies in one block), and K5's flat form scores on the
+first device.  On a process mesh a process holds only its own blocks, and
+the batch's labels, summed over them, are summed over the world by one
+all_reduce before the scoring, which every process runs.
 """
 
 from __future__ import annotations
@@ -449,39 +452,48 @@ def shard_reads_db(mesh: Mesh, table: radix_table.RadixTable, n_targets: int,
     return shards, batch_fn
 
 
+def _index_entries(mesh: Mesh) -> list:
+    """The grid entries of the flat index's blocks, in block order: each
+    entry of a one-axis mesh; the first column of a two-axis mesh, whose
+    first axis holds the blocks and whose second only repeats them."""
+    if len(mesh.axis_names) == 1:
+        return [(0, j) for j in range(mesh.shape[0])]
+    return [(i, 0) for i in range(mesh.shape[0])]
+
+
 def shard_index(mesh: Mesh, keys: np.ndarray, labels1: np.ndarray,
                 n_targets: int):
-    """The flat path's sorted index over a one-axis mesh: keys (u64,
-    ascending) and labels1 padded to a multiple of the mesh size
-    (lookup.pad_index) and split into equal contiguous blocks, block i on
-    device i, a lookup.FlatIndex with its own radix directory (a block's
-    range ends at its last key below the pad value, and a block of pad
-    keys alone misses everything).  Returns (blocks, query_fn);
-    query_fn(blocks, q, qread, n_reads) -> (total, ibest, best, sbest,
-    counts) runs K9 on every block, sums the labels on the first device
-    (at most one block holds a query's key) and scores there with K5's
-    flat form."""
-    if mesh.collective:
-        raise NotImplementedError(
-            "the flat sorted-array path (packed=False) on a mesh across "
-            "processes is not ported (ROADMAP A11)")
-    if len(mesh.axis_names) != 1:
-        raise ValueError("the flat path's index shards over a one-axis mesh")
-    devs = mesh.devices
+    """The flat path's sorted index over a mesh: keys (u64, ascending) and
+    labels1 padded to a multiple of the mesh size (lookup.pad_index) and
+    split into equal contiguous blocks over the mesh's first axis (its
+    first column on a two-axis mesh), each a lookup.FlatIndex with its own
+    radix directory on its entry's device (a block's range ends at its
+    last key below the pad value, and a block of pad keys alone misses
+    everything).  Only this process's blocks are built, each a copy of its
+    own keys.  Returns (blocks, query_fn); query_fn(blocks, q, qread,
+    n_reads) -> (total, ibest, best, sbest, counts) runs K9 on every block
+    of this process, sums the labels on its first device (at most one
+    block holds a query's key), on a process mesh sums them over the world
+    by one all_reduce, and scores there with K5's flat form."""
+    entries = _index_entries(mesh)
     keys, labels1 = lookup.pad_index(np.asarray(keys, dtype=np.uint64),
                                      np.asarray(labels1, dtype=np.int32),
-                                     len(devs))
-    per = len(keys) // len(devs)
+                                     mesh.size)
+    per = len(keys) // len(entries)
     blocks = [lookup.build_index(
-        torch.from_numpy(keys[i * per : (i + 1) * per].view(np.int64)).to(d),
-        torch.from_numpy(labels1[i * per : (i + 1) * per]).to(d))
-        for i, d in enumerate(devs)]
-    home = devs[0]
+        torch.from_numpy(keys[b * per : (b + 1) * per].view(np.int64)).to(
+            mesh.grid[i][j], copy=True),
+        torch.from_numpy(labels1[b * per : (b + 1) * per]).to(
+            mesh.grid[i][j], copy=True))
+        for b, (i, j) in enumerate(entries) if (i, j) in mesh.local]
+    home = mesh.local_devices[0]
 
     def query_fn(blocks, q, qread, n_reads: int):
         with torch.inference_mode():
             lab = _reduce([lookup.lookup_labels(ix, q.to(ix.keys.device))
-                           for ix in blocks], home)
+                           for ix in blocks], home, like=q)
+            if mesh.collective:
+                (lab,) = _all_reduce([lab], home)
             counts, total, ib, b, _, sb = score.counts_flat(
                 lab, qread.to(home), n_reads, n_targets)
             return total, ib, b, sb, counts

@@ -60,11 +60,13 @@ sys.exit(rc)
 # process mesh as its JSON spec says, then prints a JSON line of results.
 WORKER = """\
 import json, os, sys
+import numpy as np
 from jn_cuclark_tpu_torch import params
 from jn_cuclark_tpu_torch.engine import BatchPlan, Classifier
+from jn_cuclark_tpu_torch.io.targets import parse_targets
 from jn_cuclark_tpu_torch.parallel import dist
-from jn_cuclark_tpu_torch.parallel.mesh import make_mesh, make_mesh2d
-from jn_cuclark_tpu_torch.utils import memory
+from jn_cuclark_tpu_torch.parallel.mesh import Mesh, make_mesh, make_mesh2d
+from jn_cuclark_tpu_torch.utils import memory, profiling
 
 spec = json.loads(sys.argv[1])
 dist.initialize(device="cpu")
@@ -95,6 +97,64 @@ for run in spec.get("runs", ()):
                plan=BatchPlan(cycle_strategy=run["strategy"], **plan))
     out.setdefault("local_bytes", []).append(clf.sharded.local_bytes)
     classify(clf, run["tag"], spec["inputs"])
+
+def flat_mesh(run):
+    if run.get("owners"):
+        return Mesh(["cpu"] * len(run["owners"]), ("db",),
+                    owners=run["owners"])
+    if len(run["mesh"]) == 1:
+        return make_mesh(run["mesh"][0], device="cpu", across_processes=True)
+    return make_mesh2d(*run["mesh"], device="cpu", across_processes=True)
+
+
+# classify_files(jobs=2), and a second call while classify_bytes's rows
+# hold the Classifier: the refusals seen; the held call's rows written out
+def refusals(clf, reads, tag):
+    refused = []
+    try:
+        clf.classify_files([(reads, None, os.path.join(spec["out"], "x"))],
+                           jobs=2)
+    except ValueError:
+        refused.append("jobs=2")
+    with open(reads, "rb") as f:
+        rows, _ = clf.classify_bytes(f.read())
+    body = [next(rows)]  # the call holds the Classifier until drained
+    try:
+        clf.classify_file(reads, os.path.join(spec["out"], "y"))
+    except ValueError:
+        refused.append("a second call")
+    body.extend(rows)
+    with open(os.path.join(spec["out"], f"{tag}rows_r{rank}"), "wb") as f:
+        f.write(b"".join(body))
+    return refused
+
+
+# the flat path (packed=False) on process meshes: what each process holds,
+# and each input's phase calls and bytes
+for run in spec.get("flat", ()):
+    mesh = flat_mesh(run)
+    fplan = BatchPlan(max_queries=run["max_queries"], max_reads=64)
+    if run.get("keys"):
+        z = np.load(run["keys"])
+        clf = Classifier(prof, spec["k"],
+                         parse_targets(spec["targets"]).target_names,
+                         z["keys"], z["labels"], plan=fplan, device="cpu",
+                         mesh=mesh, packed=False)
+    else:
+        clf = Classifier.load(spec["db"], spec["targets"], prof, spec["k"],
+                              device="cpu", mesh=mesh, packed=False,
+                              mesh_mode=run["mode"], plan=fplan)
+    ts = [t for ix in clf.index for t in (ix.keys, ix.labels1)]
+    rec = dict(blocks=len(clf.index), bytes=sum(t.nbytes for t in ts),
+               storage=sum(t.untyped_storage().nbytes() for t in ts),
+               devices=[str(ix.keys.device) for ix in clf.index], phases={})
+    for name, reads, mate, extended in spec["inputs"][:run.get("n_inputs")]:
+        with profiling.collect() as ph:
+            classify(clf, run["tag"], [(name, reads, mate, extended)])
+        rec["phases"][name] = dict(calls=ph.counts, bytes=ph.nbytes)
+    if run.get("refuse"):
+        rec["refused"] = refusals(clf, spec["inputs"][0][1], run["tag"])
+    out.setdefault("flat", {})[run["tag"]] = rec
 
 if spec.get("agree"):
     memory.HARD_FLOOR = memory.RESERVED = 0

@@ -129,10 +129,12 @@ def test_flat_wrappers_reject_bad_input(dev):
 def test_host_paths_on_the_card(dev, tmp_path):
     """chip_smoke.py's phase 8 at a small scale on the card (3 genomes x
     16,000 bp, 1,500 reads): every flat path's CSV byte-equal to the
-    native resident run's, each launched K9 and K5's flat form, and a
-    trace kept every kernel of a burst, and both `classify --trace-dir`
-    sessions, in sessions the check found whole (taken again where it
-    did not)."""
+    native resident run's (the golden CSVs in a world of one), each
+    launched K9 and K5's flat form (on process meshes: K9 a block, two
+    blocks a rank over gloo), and a trace kept every kernel of a burst,
+    and both `classify --trace-dir` sessions, in sessions the check
+    found whole (taken again where it did not)."""
+    chip_smoke.check_goldens(dev, str(tmp_path))
     scale = tmp_path / "scale"
     scale.mkdir()
     prof = Profile(name="t", htsize=1048573, light=False, default_k=31)
@@ -142,7 +144,8 @@ def test_host_paths_on_the_card(dev, tmp_path):
                          launches, n_c3=600, c4_samples=2, n_c4=200)
     flat, _ = chip_smoke._load(dev, str(scale), prof, packed=False)
     host = chip_smoke.run_host_paths(dev, str(scale), prof, flat, launches,
-                                     str(tmp_path / "tools"), mesh_n=2,
+                                     str(tmp_path / "tools"),
+                                     str(tmp_path / "golden0"), mesh_n=2,
                                      sub=700)
     assert all(host["host trace"]["kernels_named"].values())
     burst = host["host trace"]["burst"]
@@ -160,6 +163,13 @@ def test_host_paths_on_the_card(dev, tmp_path):
         "counts_flat"] >= 1
     assert launches["host flat mesh"]["lookup"] == 2 * launches[
         "host flat mesh"]["counts_flat"]
+    for path in ("host flat processes", "host flat processes extended"):
+        assert launches[path]["lookup"] == 2 * launches[path][
+            "counts_flat"] > 0
+    assert launches["host flat one process"]["lookup"] == launches[
+        "host flat one process"]["counts_flat"] > 0
+    assert host["host flat processes"]["backend"] == "gloo"
+    assert host["host flat one process"]["backend"] == "nccl"
 
 
 def test_wrapper_rejects_bad_input(dev):

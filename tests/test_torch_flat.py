@@ -304,25 +304,6 @@ def test_read_past_the_query_budget_raises(flat_db, tmp_path):
             clf.classify_file(reads, str(tmp_path / f"{side}_out"))
 
 
-def test_process_mesh_flat_path_raises(flat_db):
-    """The flat path on a mesh across processes is not ported: a process
-    mesh with packed=False raises NotImplementedError naming its ROADMAP
-    item, as does shard_index, and a two-axis mesh is refused."""
-    tmp, prof = flat_db
-    cpu = torch.device("cpu")
-    mesh = Mesh([cpu, cpu], ("db",), owners=[0, 0])
-    assert mesh.collective
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        Classifier.load(str(tmp), str(tmp / "targets.txt"), prof, K,
-                        packed=False, mesh=mesh, mesh_mode="db")
-    keys = np.arange(10, dtype=np.uint64)
-    labels1 = np.ones(10, np.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        shard_index(mesh, keys, labels1, 4)
-    with pytest.raises(ValueError, match="one-axis"):
-        shard_index(Mesh([[cpu, cpu]] * 2, ("dp", "db")), keys, labels1, 4)
-
-
 @pytest.mark.parametrize("n_keys, n_blocks", [(3, 4), (1001, 3)])
 def test_shard_index_blocks_equal_jax(n_keys, n_blocks):
     """shard_index's blocks, each searched through its own directory (a

@@ -87,9 +87,28 @@ def test_phases_on_cpu(tmp_path, monkeypatch):
     # phase 8: the host paths on the phase-4 DB, the flat mesh of two
     flat, _ = chip_smoke._load(dev, str(scale), prof, packed=False)
     host = chip_smoke.run_host_paths(dev, str(scale), prof, flat, launches,
-                                     str(tmp_path / "tools"), mesh_n=2,
+                                     str(tmp_path / "tools"),
+                                     str(tmp_path / "golden0"), mesh_n=2,
                                      sub=700)
     assert host["host flat"]["reads"] == 1500
+    # (c) the flat path on process meshes: two gloo ranks of two blocks
+    # each (half the padded index, a directory a block), then a world of
+    # one on the golden DB; one all_reduce a batch, of int32 labels
+    procs = host["host flat processes"]["processes"]
+    assert [p["blocks"] for p in procs] == [2, 2]
+    assert procs[0]["device_bytes"] == procs[1]["device_bytes"]
+    quarter = -(-m["db_keys"] // 4)
+    assert sum(p["device_bytes"] for p in procs) == 12 * 4 * quarter + 4 * (
+        3 * (2 ** ((quarter - 1).bit_length() - 3) + 1)
+        + 2 ** ((m["db_keys"] - 3 * quarter - 1).bit_length() - 3) + 1)
+    for p in procs + host["host flat one process"]["processes"]:
+        for r in p["runs"]:
+            assert r["all_reduce"]["calls"] == r["batches"] > 0
+            assert r["all_reduce"]["bytes"] % 4 == 0 < r["all_reduce"]["bytes"]
+    assert [[r["reads"] for r in p["runs"]] for p in procs] == [[1500] * 2] * 2
+    assert host["host flat processes"]["backend"] == "gloo"
+    one = host["host flat one process"]["processes"]
+    assert len(one) == 1 and one[0]["blocks"] == 1 and len(one[0]["runs"]) == 4
     assert host["host flat mesh"]["reads"] == host["subset_reads"] == 700
     assert host["host flat extended"]["reads"] == 1500
     # keys and labels (padded to the mesh's 2 blocks) and each directory's
