@@ -86,6 +86,21 @@ raises and exits non-zero before the result lines:
              then resident, 3 cycles (auto strategy: labels) and
              dense-forced, every read assigned right and the three CSVs
              byte-equal
+  4e config 1  bench.py's headline shape (bench.py:281-311): 3 random
+             genomes x 2 Mbp, 1,000,000 reads of 150 bp all drawn from
+             them, 100,000 pairs from genome 0; phase 4's steps (the two
+             builds byte-equal, warm-up, then plain, --extended and
+             paired, every read and pair assigned its genome) once in the
+             full flavour (k = 31, bench.py's default) and once in the
+             light one at the reference's constants (HTSIZE 57,777,779,
+             k = 27, gap 4: what `kent -c` and a flagless `clark-torch`
+             run), on the same genomes and reads; then the CLI with no
+             profile flag, `db set-targets`, `db build` and `classify` in
+             processes of their own: its DB is
+             db_central_k27_t3_s57777779_m0_light_4.tsk, byte-equal to
+             the light run's, as is its CSV.  Prints each flavour's
+             rates, build, load seconds and bytes beside the card's name
+             and power limit
   5 timing   each kernel and its twin at the shapes of those paths, with
              its bound and a one-call PyTorch yardstick where one exists;
              a kernel's ms is its device time in a torch.profiler session
@@ -175,7 +190,8 @@ The last two lines are the kernels' JSON record and the run's contract
 line {"ok": true, "device": {...}}.  With no CUDA device it exits 1 and
 prints neither.  It takes no arguments; a rehearsal at a smaller scale
 calls the phase functions (check_kernels, run_scale, run_out_of_core,
-run_refseq, time_kernels, run_tools, run_cluster, run_host_paths) with
+run_refseq, run_config1, time_kernels, run_tools, run_cluster,
+run_host_paths) with
 smaller sizes, as tests/test_torch_smoke.py does on the CPU.
 """
 
@@ -1322,12 +1338,13 @@ def drop_count_columns(ext: bytes, n_targets: int) -> bytes:
     return b"\n".join(out)
 
 
-def _same_db(d1: str, d2: str, stem: str):
+def _same_db(d1: str, d2: str, stem: str,
+             what: str = "device- and host-built"):
     for ext in (".sz", ".ky", ".lb"):
         a = np.fromfile(os.path.join(d1, stem + ext), np.uint8)
         b = np.fromfile(os.path.join(d2, stem + ext), np.uint8)
         if not np.array_equal(a, b):
-            raise AssertionError(f"device- and host-built {ext} differ")
+            raise AssertionError(f"{what} {ext} differ")
 
 
 def _path(launches: dict, name: str, fn):
@@ -1341,11 +1358,25 @@ def _path(launches: dict, name: str, fn):
     return out, seconds
 
 
+def genome_occurrences(prof: Profile, k: int, glen: int) -> int:
+    """The k-mer occurrences the build extracts from a genome of glen
+    bases on one sequence line: every window in the full flavour; in the
+    light one, the non-overlapping k-mers (glen // k), one in gap of them
+    (db/builder.extract_occurrences)."""
+    if not prof.light:
+        return max(glen - k + 1, 0)
+    return -(-(glen // k) // prof.default_gap)
+
+
 def run_scale(dev, tmp: str, n_genomes: int, glen: int, n_reads: int,
               n_pairs: int = 100_000, prof: Profile = params.FULL,
-              seed: int = 2):
-    """Phase 4; returns (metrics, launch counts by path, classifier,
-    reads, lens)."""
+              seed: int = 2, read_len: int | None = None,
+              junk_p: float = 0.5, name: str = ""):
+    """Phase 4 (and each flavour of phase 4e): the DB built on the card
+    and on the host, then the reads (of read_len bp, or 100-250; junk_p of
+    them random) plain and extended and the pairs, each timed after a
+    warm-up; launch counts under `name` + the path's name.  Returns
+    (metrics, launch counts by path, classifier, reads, lens)."""
     k = prof.default_k
     rng = np.random.default_rng(seed)
     m, launches = {}, {}
@@ -1358,7 +1389,7 @@ def run_scale(dev, tmp: str, n_genomes: int, glen: int, n_reads: int,
     dev_kw = {} if dev.type == "cuda" else dict(device=dev)
     with profiling.collect() as ph:
         db, m["db_build_device_s"] = _path(
-            launches, "db build",
+            launches, name + "db build",
             lambda: builder.build_database(targets, tmp, prof, k, **dev_kw))
     m["db_build_device_phase_s"] = dict(ph.totals)
     host_dir = os.path.join(tmp, "host_db")
@@ -1368,14 +1399,17 @@ def run_scale(dev, tmp: str, n_genomes: int, glen: int, n_reads: int,
         builder.build_database(targets, host_dir, prof, k, device="host")
         m["db_build_host_s"] = time.perf_counter() - t
     m["db_build_host_phase_s"] = dict(ph.totals)
-    _same_db(tmp, host_dir, prof.db_stem(k, n_genomes, 0, prof.default_gap))
+    stem = prof.db_stem(k, n_genomes, 0, prof.default_gap)
+    _same_db(tmp, host_dir, stem)
     shutil.rmtree(host_dir)
     m["db_keys"], m["db_distinct_kmers"] = len(db.canonical), db.n_mother
-    m["db_occurrences"] = n_genomes * (glen - k + 1)
+    m["db_occurrences"] = n_genomes * genome_occurrences(prof, k, glen)
+    m["db_file_bytes"] = {ext: os.path.getsize(os.path.join(tmp, stem + ext))
+                          for ext in (".sz", ".ky", ".lb")}
 
     t = time.perf_counter()
     fa, lens, expect = make_reads(np.random.default_rng(seed + 1), genomes,
-                                  n_reads)
+                                  n_reads, read_len=read_len, junk_p=junk_p)
     reads = os.path.join(tmp, "reads.fa")
     with open(reads, "wb") as f:
         f.write(fa)
@@ -1406,9 +1440,9 @@ def run_scale(dev, tmp: str, n_genomes: int, glen: int, n_reads: int,
     for fn in runs.values():
         fn()  # warm-up: allocator, library loads
     stats = {}
-    for name, fn in runs.items():
-        stats[name], wall = _path(launches, name, fn)
-        m[f"{name}_wall_s"] = wall
+    for path, fn in runs.items():
+        stats[path], wall = _path(launches, name + path, fn)
+        m[f"{path}_wall_s"] = wall
     plain = check_csv(out + ".csv", expect)
     with open(out + "_ext.csv", "rb") as f:
         if drop_count_columns(f.read(), n_genomes) != plain:
@@ -1426,12 +1460,12 @@ def run_scale(dev, tmp: str, n_genomes: int, glen: int, n_reads: int,
     m["hit_stats"] = stats["extended"]["hit_stats"].report()
 
     m["traced_wall_s"], m["phase_s"] = {}, {}
-    for name, fn in runs.items():  # separate traced runs for the breakdown
+    for path, fn in runs.items():  # separate traced runs for the breakdown
         with profiling.collect() as ph:
             t = time.perf_counter()
             fn()
-            m["traced_wall_s"][name] = time.perf_counter() - t
-        m["phase_s"][name] = dict(ph.totals)
+            m["traced_wall_s"][path] = time.perf_counter() - t
+        m["phase_s"][path] = dict(ph.totals)
     if dev.type == "cuda":
         m["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
     return m, launches, clf, fa, lens
@@ -1719,6 +1753,75 @@ def run_refseq(dev, tmp: str, launches: dict, n_targets: int = 5000,
     if dense.dense_table is None or csv != want:
         raise AssertionError("refseq dense CSV differs from the resident's")
     m["reads"], m["targets"], m["genome_len"] = n_reads, n_targets, glen
+    return m
+
+
+# -------------------------------------------------------------- phase 4e
+CONFIG1_STEM = "db_central_k27_t3_s57777779_m0_light_4.tsk"  # the CLI's
+
+
+def _clark_torch(*argv, timeout: int = 600) -> float:
+    """One command of the port's CLI as a user runs it: a process of
+    `python -m jn_cuclark_tpu_torch.cli` from the checkout's root.
+    Returns its seconds; raises where it fails."""
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "jn_cuclark_tpu_torch.cli",
+                        *map(str, argv)], cwd=ROOT, capture_output=True,
+                       text=True, timeout=timeout, env=_cluster_env())
+    if r.returncode:
+        raise AssertionError(f"clark-torch {' '.join(map(str, argv))}: rc "
+                             f"{r.returncode}\n{(r.stdout + r.stderr)[-4000:]}")
+    return time.perf_counter() - t
+
+
+def run_config1(dev, tmp: str, launches: dict, glen: int = 2_000_000,
+                n_reads: int = 1_000_000, n_pairs: int = 100_000,
+                profiles: tuple = (params.FULL, params.LIGHT)):
+    """Phase 4e, bench.py's configuration 1 (bench.py:281-311): 3 genomes
+    of glen bp, n_reads reads of 150 bp all drawn from them, n_pairs
+    pairs from genome 0, through `run_scale` once a flavour in `profiles`
+    (the full one, bench.py's default, then the light one, what `kent -c`
+    and a flagless `clark-torch` run), on the same genomes and reads; the
+    launch counts under "config1 <full|light> <path>".  Then the CLI as a
+    user runs it, with no profile flag: `db set-targets`, `db build` and
+    `classify` in processes of their own on a layout of the same genomes;
+    its DB must be CONFIG1_STEM, and its files and CSV byte-equal to the
+    light flavour's (which must be params.LIGHT).  Returns the metrics
+    by flavour and the CLI's."""
+    m = {}
+    for prof in profiles:
+        flavour = "light" if prof.light else "full"
+        d = os.path.join(tmp, flavour)
+        os.makedirs(d)
+        m[flavour], paths, clf, _, _ = run_scale(
+            dev, d, 3, glen, n_reads, n_pairs, prof, read_len=150,
+            junk_p=0.0, name=f"config1 {flavour} ")
+        launches.update(paths)
+        del clf
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        if not prof.light:
+            shutil.rmtree(d)
+    light = os.path.join(tmp, "light")
+
+    db = os.path.join(tmp, "cli")
+    cli_layout(db, light, 3)
+    device = [] if dev.type == "cuda" else ["--device", dev.type]
+    out = os.path.join(tmp, "cli_res")
+    c = m["cli"] = {}
+    c["set_targets_s"] = _clark_torch("db", "set-targets", db)
+    c["db_build_s"] = _clark_torch("db", "build", db, *device)
+    c["classify_s"] = _clark_torch("classify", "-D", db, "-O",
+                                   os.path.join(light, "reads.fa"), "-R",
+                                   out, *device)
+    subdb = database.DBConfig.load(db).subdb
+    c["db_files"] = sorted(f for f in os.listdir(subdb)
+                           if f.endswith((".sz", ".ky", ".lb")))
+    if c["db_files"] != [CONFIG1_STEM + ext for ext in (".ky", ".lb", ".sz")]:
+        raise AssertionError(f"the CLI's DB files: {c['db_files']}")
+    _same_db(subdb, light, CONFIG1_STEM, "the CLI's and the API's light")
+    _same_file("config1 CLI", out + ".csv", os.path.join(light, "res.csv"))
+    c["stem"] = CONFIG1_STEM
     return m
 
 
@@ -2309,14 +2412,14 @@ def write_toy_taxonomy(td: str, n_species: int):
             f.write(f"{tid}\t|\t{nm}\t|\t\t|\tscientific name\t|\n")
 
 
-def tools_layout(td: str, scale_dir: str, n_genomes: int, prof: Profile):
-    """A reference-layout database directory over phase 4's DB: Custom/
-    links the genomes, taxonomy/ holds the toy tree, the other dumps
-    (empty) and an accession map, and config.json names phase 4's targets
-    file and DB directory."""
+def cli_layout(td: str, genome_dir: str, n_genomes: int):
+    """A reference-layout database directory of make_genomes' genomes in
+    genome_dir, as `db set-targets` reads it: Custom/ links the genomes,
+    taxonomy/ holds the toy tree (genome i species 1000 + i), the other
+    dumps (empty) and an accession map."""
     os.makedirs(os.path.join(td, "Custom"))
     for i in range(n_genomes):
-        os.symlink(os.path.join(scale_dir, f"g{i}.fa"),
+        os.symlink(os.path.join(genome_dir, f"g{i}.fa"),
                    os.path.join(td, "Custom", f"g{i}.fa"))
     write_toy_taxonomy(td, n_genomes)
     tax = os.path.join(td, "taxonomy")
@@ -2325,6 +2428,12 @@ def tools_layout(td: str, scale_dir: str, n_genomes: int, prof: Profile):
     with open(os.path.join(tax, "nucl_accss"), "w") as f:
         f.writelines(f"g{i}\tg{i}.1\t{1000 + i}\t{i}\n"
                      for i in range(n_genomes))
+
+
+def tools_layout(td: str, scale_dir: str, n_genomes: int, prof: Profile):
+    """cli_layout over phase 4's genomes, and a config.json that names
+    phase 4's targets file and DB directory."""
+    cli_layout(td, scale_dir, n_genomes)
     database.DBConfig(
         db_dir=td, targets=os.path.join(scale_dir, "targets.txt"),
         subdb=scale_dir, rank=0, profile_name=prof.name, k=prof.default_k,
@@ -3256,6 +3365,26 @@ def main() -> int:
             **metrics)
 
         t = time.perf_counter()
+        printed = set(launches)
+        config1_dir = os.path.join(tmp, "config1")
+        os.makedirs(config1_dir)
+        metrics = run_config1(dev, config1_dir, launches)
+        shutil.rmtree(config1_dir)
+        for flavour in ("full", "light"):
+            c = metrics[flavour]
+            print(f"config 1 {flavour} ({smi}): reads/s "
+                  f"{c['reads_per_s']:.0f}, k-mer lookups/s "
+                  f"{c['kmer_lookups_per_s']:.0f}, extended reads/s "
+                  f"{c['extended_reads_per_s']:.0f}, pairs/s "
+                  f"{c['pairs_per_s']:.0f}, db build s "
+                  f"{c['db_build_device_s']:.3f} (host "
+                  f"{c['db_build_host_s']:.3f}), load s {c['load_s']:.3f}",
+                  flush=True)
+        _phase("4e config 1", t, card=smi, launches={
+            name: n for name, n in launches.items() if name not in printed},
+            **metrics)
+
+        t = time.perf_counter()
         # the flat path's sorted index, kept for phase 8
         flat, load_flat_s = _load(dev, scale_dir, params.FULL, packed=False)
         timing, shape = time_kernels(dev, clf, dense_clf, flat, fa, lens,
@@ -3354,6 +3483,12 @@ PATH_KERNELS = {
     "host flat processes extended": {"lookup", "counts_flat"},
     "host flat one process": {"lookup", "counts_flat"},
     "host trace": {"window_canonicals", "probe", *_SMALL},
+    **{f"config1 {flavour} {path}": need
+       for flavour in ("full", "light") for path, need in (
+           ("db build", {"aggregate"}),
+           ("classify", {"window_canonicals", "probe", *_SMALL}),
+           ("extended", {"window_canonicals", "probe", "sort_top2"}),
+           ("paired", {"window_canonicals", "probe", *_SMALL}))},
 }
 
 

@@ -14,16 +14,20 @@ D2H fetch of its results, which is where device time shows on the host.
 (`<host>_<pid>.<ms>.pt.trace.json`): the host's operator calls and, on a
 CUDA device, every kernel with its device time.
 
-A profiler session on the card can lose kernels.  In a process that has
-run on the card for a while, a session mostly drops its first kernels, a
-count that grows with the process's age (on an H100 about one kernel for
-each 13 s of age: 41 after nine minutes) and does not shrink when the
-device idles after the window opens; a second burst in the same session
-is kept (chip_trace_probe.py, PERF.md §6).  Now and then a session loses
-all of its kernels, or a span at its end, while every launch call is
-recorded.  The cause is not found.  So every CUDA session of the port
-goes through `cuda_session`: it runs TRACE_WARMUP small kernels of its
-own, waits for them and idles TRACE_LEAD_S before the block (the dropped
+A profiler session on the card can lose kernels, in torch.profiler's own
+stack: a session of torch alone loses them too (chip_trace_probe.py
+--repro, PERF.md §6).  A session mostly drops its first kernels, by
+count, a count that grows with the seconds since the process's first
+profiler session (on an H100 about one kernel for each 13 s: 43 at nine
+minutes), not with the process's age, the kernels it launched before or
+the sessions it opened before; idle after the window opens does not
+shield them, and a second burst in the same session is kept.  The lost
+kernels are absent from the trace, not there under another correlation
+id (`check_session`'s kernel_events and unmatched).  Now and then a
+session loses all of its kernels, or a span at its end, while every
+launch call is recorded.  So every CUDA session of the port goes
+through `cuda_session`: it runs TRACE_WARMUP small kernels of its own,
+waits for them and idles TRACE_LEAD_S before the block (the dropped
 first kernels are the warm-up's, which a trace shows as `add_` kernels
 ahead of the run's), and after the block TRACE_MARKERS closing markers,
 the same `add_`.  Once the session ends `check_session` matches each
@@ -45,7 +49,7 @@ import threading
 import time
 
 TRACE_WARMUP = 512  # kernels a CUDA trace runs before its block: more
-# than a session drops in a process two hours old
+# than a session drops 1.8 hours after the process's first session
 TRACE_LEAD_S = 0.05  # the wait between the warm-up and the block
 TRACE_MARKERS = 32  # closing marker kernels a CUDA session runs after it
 # the host calls that launch a kernel, by the prefix of their trace name
@@ -128,6 +132,24 @@ def kept_kernels(events: list) -> set:
             if e.get("cat") == "kernel"}
 
 
+def kernel_names(events: list) -> dict:
+    """{kernel name: its kernel events} of a Chrome trace: the kernels
+    counted by name, whatever their correlation ids."""
+    out: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            out[e["name"]] = out.get(e["name"], 0) + 1
+    return out
+
+
+def unmatched_kernels(events: list) -> int:
+    """A Chrome trace's kernel events whose correlation id is no launch
+    call's: kernels that reached the trace under a wrong id."""
+    ids = set(launches(events))
+    return sum(e["args"].get("correlation") not in ids for e in events
+               if e.get("cat") == "kernel")
+
+
 def span_kept(launched: list, kept: set) -> dict:
     """Of the kernels of the launches `launched` (correlation ids in host
     order): how many reached the trace (`kept`), and how many launches
@@ -144,12 +166,18 @@ def check_session(events: list, warmup: int = TRACE_WARMUP,
     closing markers.  Returns whole (the last warm-up kernel, every kernel
     of the block and every marker kept), warmup_kept (the last warm-up
     kernel's), markers_lost, and of the block: launched, kept, lost_first
-    and lost_last (span_kept)."""
+    and lost_last (span_kept); and of the whole session, kernels counted
+    by name against its launch calls: kernel_events (every kernel event)
+    and unmatched (those whose correlation id is no launch's).  A kernel
+    lost by its id alone shows as unmatched; one that never reached the
+    trace, as fewer kernel_events than launch calls."""
     ids = launches(events)
     kept = kept_kernels(events)
+    tally = dict(kernel_events=sum(kernel_names(events).values()),
+                 unmatched=unmatched_kernels(events))
     if len(ids) < warmup + markers:  # launch calls missing: nothing holds
         return dict(whole=False, warmup_kept=False, markers_lost=markers,
-                    launched=0, kept=0, lost_first=0, lost_last=0)
+                    launched=0, kept=0, lost_first=0, lost_last=0, **tally)
     block = ids[warmup:len(ids) - markers]
     span = span_kept(block, kept)
     warmup_kept = warmup == 0 or ids[warmup - 1] in kept
@@ -157,7 +185,7 @@ def check_session(events: list, warmup: int = TRACE_WARMUP,
     return dict(whole=warmup_kept and not markers_lost
                 and span["kept"] == len(block),
                 warmup_kept=warmup_kept, markers_lost=markers_lost,
-                launched=len(block), **span)
+                launched=len(block), **span, **tally)
 
 
 def block_events(events: list, warmup: int = TRACE_WARMUP,
@@ -231,7 +259,8 @@ def trace(trace_dir: str | None, cuda: bool = False):
             print(f"trace: the profiler lost kernels ({rec['kept']} of the "
                   f"run's {rec['launched']} kept, {rec['markers_lost']} of "
                   f"{TRACE_MARKERS} closing markers lost, the last warm-up "
-                  f"kernel {'kept' if rec['warmup_kept'] else 'lost'}): "
+                  f"kernel {'kept' if rec['warmup_kept'] else 'lost'}, "
+                  f"{rec['unmatched']} kernels under no launch's id): "
                   f"{path} is partial", file=sys.stderr)
         rec.pop("events")
         return

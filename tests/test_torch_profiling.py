@@ -16,11 +16,12 @@ W, M = 8, 4  # warm-up kernels and closing markers of the synthetic sessions
 
 
 def events(n_block: int, lost=(), warmup: int = W, markers: int = M,
-           memset_at=None):
+           memset_at=None, relabelled=()):
     """A session's events: warmup + n_block + markers launches in host
     order (correlation ids 1, 2, ...), each with its kernel but those whose
-    launch index is in `lost`; a memset call and its device event after
-    block launch `memset_at`."""
+    launch index is in `lost`; the kernels of the launch indices in
+    `relabelled` under a correlation id no launch has; a memset call and
+    its device event after block launch `memset_at`."""
     out = []
     names = (["warm"] * warmup + [f"k{i % 3}" for i in range(n_block)]
              + ["mark"] * markers)
@@ -28,9 +29,10 @@ def events(n_block: int, lost=(), warmup: int = W, markers: int = M,
         out.append({"cat": "cuda_runtime", "name": "cudaLaunchKernel",
                     "ts": 10 * i, "args": {"correlation": i + 1}})
         if i not in lost:
+            c = i + 1 + (10_000 if i in relabelled else 0)
             out.append({"cat": "kernel", "name": f"{name}(int)",
                         "ts": 10 * i + 5, "dur": 2.0,
-                        "args": {"correlation": i + 1}})
+                        "args": {"correlation": c}})
         if memset_at is not None and i == warmup + memset_at:
             c = 1000 + i
             out.append({"cat": "cuda_runtime", "name": "cudaMemsetAsync",
@@ -57,11 +59,46 @@ CASES = {
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_check_session(case):
+    """Each case's verdict; its lost kernels never reached the trace, so
+    the kernels counted by name are the launches less the lost, none
+    under a wrong id."""
     lost, whole, warm, markers_lost, kept, first, last = CASES[case]
     got = profiling.check_session(events(N, set(lost)), warmup=W, markers=M)
     assert got == dict(whole=whole, warmup_kept=warm,
                        markers_lost=markers_lost, launched=N, kept=kept,
-                       lost_first=first, lost_last=last)
+                       lost_first=first, lost_last=last,
+                       kernel_events=W + N + M - len(set(lost)), unmatched=0)
+
+
+@pytest.mark.parametrize("case", ["first kernels", "end span", "all"])
+def test_check_session_tells_mislabelled_from_absent(case):
+    """Kernels in the trace under a correlation id no launch has: lost by
+    id as absent ones are (the same verdict, kept and spans), but counted
+    by name: kernel_events holds every launch, unmatched the relabelled."""
+    lost = {"first kernels": range(W + 2),
+            "end span": range(W + N - 3, W + N + M),
+            "all": range(W + N + M)}[case]
+    absent = profiling.check_session(events(N, set(lost)), warmup=W,
+                                     markers=M)
+    got = profiling.check_session(events(N, relabelled=set(lost)),
+                                  warmup=W, markers=M)
+    assert {key: v for key, v in got.items() if key not in (
+        "kernel_events", "unmatched")} == {
+        key: v for key, v in absent.items() if key not in (
+            "kernel_events", "unmatched")}
+    assert (got["kernel_events"], got["unmatched"]) == (W + N + M, len(lost))
+    assert absent["kernel_events"] + len(lost) == W + N + M
+
+
+def test_kernel_names_and_unmatched():
+    """kernel_names counts the kernel events of each name; unmatched_kernels
+    those whose id is no launch call's."""
+    ev = events(N, lost={0}, relabelled={W, W + 1})
+    assert profiling.kernel_names(ev) == {
+        "warm(int)": W - 1, "k0(int)": 4, "k1(int)": 4, "k2(int)": 4,
+        "mark(int)": M}
+    assert profiling.unmatched_kernels(ev) == 2
+    assert profiling.kernel_names([]) == {}
 
 
 def test_check_session_at_the_defaults():

@@ -13,9 +13,10 @@ import pytest
 import torch
 
 import chip_smoke
+from jn_cuclark_tpu_torch import params
 from jn_cuclark_tpu_torch.ops import kernels, radix_table
 from jn_cuclark_tpu_torch.params import Profile
-from jn_cuclark_tpu_torch.utils import memory
+from jn_cuclark_tpu_torch.utils import memory, native
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -58,6 +59,22 @@ def test_phases_on_cpu(tmp_path, monkeypatch):
                                glen=2000, n_reads=2000)
     assert rs["refseq cycled"]["strategy"] == "labels"
     assert rs["refseq dense"]["strategy"] == "dense"
+    # phase 4e: config 1's shape in both flavours, the light one at the
+    # reference's constants, then the CLI with no profile flag
+    c1 = tmp_path / "config1"
+    c1.mkdir()
+    full = Profile(name="f", htsize=1048573, light=False, default_k=31)
+    cfg1 = chip_smoke.run_config1(dev, str(c1), launches, glen=20_000,
+                                  n_reads=2000, n_pairs=200,
+                                  profiles=(full, params.LIGHT))
+    # light: 740 non-overlapping 27-mers a genome, one in 4 taken
+    assert cfg1["light"]["db_occurrences"] == cfg1["light"]["db_keys"] == 555
+    assert cfg1["full"]["db_occurrences"] == cfg1["full"]["db_keys"] == (
+        3 * (20_000 - 30))
+    assert cfg1["light"]["db_file_bytes"] == {
+        ".sz": params.LIGHT_HTSIZE, ".ky": 4 * 555, ".lb": 2 * 555}
+    assert (cfg1["light"]["reads"], cfg1["light"]["pairs"]) == (2000, 200)
+    assert cfg1["cli"]["stem"] == chip_smoke.CONFIG1_STEM
     # phase 6 on the phase-4 DB, verify's toy batch on the CPU here
     tools = chip_smoke.run_tools(dev, str(tmp_path), clf, str(scale), 3, prof,
                                  launches, n_c3=600, c4_samples=3, n_c4=200)
@@ -196,6 +213,24 @@ def test_phases_on_cpu(tmp_path, monkeypatch):
     # no session on the CPU: nothing retaken
     assert set(shape["retakes"]) == set(timing) | {"mask"}
     assert not any(shape["retakes"].values())
+
+
+@pytest.mark.parametrize("light", [False, True], ids=["full", "light"])
+@pytest.mark.parametrize("glen", [26, 31, 108, 1_000, 20_011])
+def test_genome_occurrences_are_the_builds(tmp_path, light, glen):
+    """run_scale's count of occurrences (genome_occurrences) is what the
+    build's extraction takes from make_genomes' files, in each flavour at
+    its own constants: every window, or one in gap of the non-overlapping
+    k-mers."""
+    prof = params.LIGHT if light else params.FULL
+    chip_smoke.make_genomes(str(tmp_path), np.random.default_rng(glen), 2,
+                            glen)
+    for i in range(2):
+        data = (tmp_path / f"g{i}.fa").read_bytes()
+        got = native.extract_canonical(data, prof.default_k, prof.light,
+                                       prof.default_gap)
+        assert len(got) == chip_smoke.genome_occurrences(
+            prof, prof.default_k, glen)
 
 
 def test_kshift_case_plans_kshift_1():
