@@ -19,8 +19,10 @@ the reads over N devices, `-d N --shard-db` splits the table's rows (which
 composes with --db-cycles), and `--dp M` with --shard-db does both on an
 M x N/M mesh.  `--device` picks cuda (the first N cards; N more than the
 machine has raises) or cpu (N CPU shards); `--trace-dir DIR` writes a
-torch.profiler trace of the run to DIR.  abundance, merge and report
-run on the host; verify runs a toy batch through K1-K3 on `--device`.
+torch.profiler trace of the run to DIR, with the `clark.*` phase spans of
+every engine thread (`--profile` prints their seconds).  abundance, merge
+and report run on the host; verify runs a toy batch through K1-K3 on
+`--device`.
 `cluster -c CONF` runs a cluster config: its samples one after another
 (backend local), or one process per host over torch.distributed (backend
 jax_distributed), each classifying its own samples
@@ -736,10 +738,17 @@ def build_parser() -> argparse.ArgumentParser:
                     "or cpu (plain-PyTorch twins); with -d, the kind of the "
                     "mesh's devices")
     pc.add_argument("--profile", action="store_true",
-                    help="print phase timing summary")
+                    help="print each file's phase timers: the seconds of "
+                    "the clark.* spans (scan_cut, scan, scan_wait, pack, "
+                    "dispatch, queue_full, device_wait, batch_wait, "
+                    "fetch_wait, format, rows_held, count_reads) from every "
+                    "engine thread, and each call's fill and drain; "
+                    "without --profile or --trace-dir nothing is recorded")
     pc.add_argument("--trace-dir", default=None,
-                    help="capture a torch.profiler trace (a Chrome trace "
-                    "of the host's ops and, on cuda, the kernels) into DIR")
+                    help="capture a torch.profiler trace into DIR: a Chrome "
+                    "trace of every thread's host ops and clark.* spans "
+                    "(scan thread, dispatch worker, fetch workers, caller) "
+                    "and, on cuda, the kernels")
     pc.set_defaults(fn=cmd_classify)
 
     pa = sub.add_parser("abundance", help="abundance estimation from result CSVs")

@@ -83,7 +83,8 @@ from .kmer import canonical_u64, window_values_le
 from .ops import device_pipeline, lookup, pack, radix_table, score
 from .params import NBN, Profile
 from .utils import memory, native
-from .utils.profiling import maybe_phase
+from .utils import profiling
+from .utils.profiling import maybe_phase, maybe_wait
 
 # device bytes of one batch's dense [R, T+1] count matrix: rows per batch
 # are capped to fit it wherever a batch makes one (extended output at
@@ -179,7 +180,13 @@ class _ScanStream:
                         "failed to recognize the format of the file"
                     )
                 is_fq = data[0:1] == b"@"
-                for s, e in iter_record_cuts(buf, is_fq, chunk_bytes):
+                cuts = iter_record_cuts(buf, is_fq, chunk_bytes)
+                while True:
+                    with maybe_phase("scan_cut"):
+                        cut = next(cuts, None)
+                    if cut is None:
+                        break
+                    s, e = cut
                     with maybe_phase("scan"):
                         part = native.scan_reads(
                             data, s, e, is_fasta=not is_fq
@@ -201,12 +208,17 @@ class _ScanStream:
     def ensure(self, n: int) -> int:
         """Block until ≥n reads are scanned (or the scan finished); return
         the scanned count so far (≥n unless the input is exhausted)."""
-        with self._cond:
-            while self._cum[-1] < n and not self._done:
+        with self._cond, maybe_wait("scan_wait", lambda: self._short(n)):
+            while self._short(n):
                 self._cond.wait()
             if self._err is not None:
                 raise self._err
             return self._cum[-1]
+
+    def _short(self, n: int) -> bool:
+        """Fewer than n reads scanned and the scan still running (the
+        condition's lock held)."""
+        return self._cum[-1] < n and not self._done
 
     def total(self) -> int:
         with self._cond:
@@ -688,6 +700,7 @@ class Classifier:
         mesh the rows generator holds the Classifier's one call from its
         first row to its last.  The flat path (packed=False) parses the
         input with numpy; every other path runs the native host runtime."""
+        t0 = time.perf_counter()
         if not self.packed:
             rs = parse_reads(data)
             rows = self._classify_flat(rs, paired, extended, hit_stats)
@@ -699,9 +712,10 @@ class Classifier:
                 data, ns, ne, ss, se, ln, paired, extended, hit_stats)
             n_reads = len(ln)
         else:
-            n_reads = native.quick_count(data)
+            with maybe_phase("count_reads"):
+                n_reads = native.quick_count(data)
             scan = _ScanStream(data, self.plan.scan_chunk_bytes)
-            rows = self._classify_native(data, scan, paired, extended,
+            rows = self._classify_native(data, scan, t0, paired, extended,
                                          hit_stats)
         if self._one_call is None:
             return rows, n_reads
@@ -794,8 +808,9 @@ class Classifier:
                         slab, ns, ne, ss, se, ln, paired, extended, hs)
                     nr = len(ln)
                 else:
+                    t_slab = time.perf_counter()
                     scan = _ScanStream(slab, self.plan.scan_chunk_bytes)
-                    gen = self._classify_native(slab, scan, paired,
+                    gen = self._classify_native(slab, scan, t_slab, paired,
                                                 extended, hs)
                 for chunk in gen:
                     f.write(chunk)
@@ -1181,8 +1196,11 @@ class Classifier:
             with maybe_phase("device_wait"):
                 return bi, out.cpu().numpy()
 
-        entries = self._pipelined(enumerate(packed_batches), dispatch)
-        for bi, c in self._pipelined_pool(entries, fetch, workers=2, depth=2):
+        entries = self._pipelined(enumerate(packed_batches), dispatch,
+                                  put_wait="queue_full",
+                                  get_wait="batch_wait")
+        for bi, c in self._pipelined_pool(entries, fetch, workers=2, depth=2,
+                                          wait="fetch_wait"):
             if strategy == "labels":
                 acc[bi] = [c] if acc[bi] is None else acc[bi] + [c]
             elif acc[bi] is None:
@@ -1257,14 +1275,16 @@ class Classifier:
         return (",".join(cols) + "\n").encode()
 
     # ---------------------------------------------------- native host path
-    def _classify_native(self, data, scan: _ScanStream, paired: bool = False,
-                         extended=False, hit_stats: HitStats | None = None):
+    def _classify_native(self, data, scan: _ScanStream, t0: float,
+                         paired: bool = False, extended=False,
+                         hit_stats: HitStats | None = None):
         """Host side fully in C++ (scan/pack/format), device step in torch.
 
         Batches of consecutive reads in file order (`_plan_batches_stream`,
         which waits only for the reads of the batch it emits), each at its
         longest read's stride tier; each batch formats with one native call
-        as soon as it is fetched."""
+        as soon as it is fetched.  `t0` is the call's start
+        (time.perf_counter), from which a collector measures its fill."""
         k = self.k
         dev = self.device
         nbn = NBN if paired else 0
@@ -1277,6 +1297,7 @@ class Classifier:
         if extended and not ext_runs:
             max_reads = self._dense_rows(max_reads)
         n_targets = self.n_targets if extended else 0
+        edges = profiling.edges(t0)
 
         def dispatch(spec):
             r0, r1, stride, _ = spec
@@ -1288,7 +1309,10 @@ class Classifier:
                 total, ib, b, sb, extra = self.batch_fn(
                     _to_dev(words, dev), _to_dev(vwords, dev),
                     extended=ext_mode, probe_cols=pc)
-                return (ns, ne, ln), torch.stack([total, ib, b, sb]), extra
+                res = torch.stack([total, ib, b, sb])
+            if edges is not None:
+                edges.dispatched()
+            return (ns, ne, ln), res, extra
 
         def fetch(entry):
             # every launch and copy goes to the device's current (default)
@@ -1304,21 +1328,28 @@ class Classifier:
             return meta, res, extra
 
         entries = self._pipelined(self._plan_batches_stream(scan, max_reads),
-                                  dispatch)
+                                  dispatch, put_wait="queue_full",
+                                  get_wait="batch_wait")
         for (ns, ne, ln), res, extra in self._pipelined_pool(
-                entries, fetch, workers=2, depth=2):
+                entries, fetch, workers=2, depth=2, wait="fetch_wait"):
             if extended and hit_stats is not None:
                 if ext_runs:
                     hit_stats.update_runs(extra)
                 else:
                     hit_stats.update_counts(extra)
             with maybe_phase("format"):
-                yield native.format_rows(
+                rows = native.format_rows(
                     data, ns, ne, *res, ln - nbn, k, self.names,
                     counts=extra if extended and not ext_runs else None,
                     sorted_runs=extra if ext_runs else None,
                     n_targets=n_targets,
                 )
+                if edges is not None:
+                    edges.taken()
+                with maybe_phase("rows_held"):
+                    yield rows
+        if edges is not None:
+            edges.close()
 
     # ------------------------------------------------------ the flat path
     def _classify_flat(self, rs: ReadSet, paired: bool, extended: bool,
@@ -1353,10 +1384,13 @@ class Classifier:
                                         counts)
 
     # --------------------------------------------------- threaded pipelining
-    def _pipelined_pool(self, items, fn, workers: int, depth: int):
+    def _pipelined_pool(self, items, fn, workers: int, depth: int,
+                        wait: str | None = None):
         """Ordered map with `workers` concurrent fn calls, up to `depth`
         submitted ahead (the result-fetch stage: blocking D2H copies of
-        consecutive batches overlap each other and the formatting)."""
+        consecutive batches overlap each other and the formatting).  Under
+        a collector, the consumer's waits for an unfinished call are the
+        phase `wait`, where given."""
         with ThreadPoolExecutor(max_workers=workers) as ex:
             pending: collections.deque = collections.deque()
             it = iter(items)
@@ -1371,12 +1405,17 @@ class Classifier:
                         pending.append(ex.submit(fn, item))
                     if not pending:
                         break
-                    yield pending.popleft().result()
+                    fut = pending.popleft()
+                    with maybe_wait(wait, lambda: not fut.done()):
+                        out = fut.result()
+                    yield out
             finally:
                 for f in pending:
                     f.cancel()
 
-    def _pipelined(self, items, fn, depth: int | None = None):
+    def _pipelined(self, items, fn, depth: int | None = None,
+                   put_wait: str | None = None,
+                   get_wait: str | None = None):
         """Yield fn(item) in order, with fn running in a worker thread.
 
         Moving a stage into its own thread hides it behind the downstream
@@ -1384,7 +1423,10 @@ class Classifier:
         release the GIL).  Calls CHAIN: wrapping one `_pipelined` around
         another builds a multi-stage pipeline (pack+dispatch / fetch /
         format+yield) with one thread and one bounded queue per stage; the
-        queue bound is the stage's depth (default BatchPlan.pipeline_depth)."""
+        queue bound is the stage's depth (default BatchPlan.pipeline_depth).
+        Under a collector, the worker's waits for room in a full queue are
+        the phase `put_wait` and the consumer's waits on an empty one the
+        phase `get_wait`, where given."""
         if depth is None:
             depth = self.plan.pipeline_depth
         q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
@@ -1392,33 +1434,35 @@ class Classifier:
         err: list[BaseException] = []
         sentinel = object()
 
+        def put(entry):
+            while not stop.is_set():
+                try:
+                    q.put(entry, timeout=0.1)
+                    return
+                except queue.Full:
+                    pass
+
         def worker():
             try:
                 for item in items:
                     if stop.is_set():
                         return
                     entry = fn(item)
-                    while not stop.is_set():
-                        try:
-                            q.put(entry, timeout=0.1)
-                            break
-                        except queue.Full:
-                            pass
+                    # the worker alone puts: a queue not full takes it now
+                    with maybe_wait(put_wait, q.full):
+                        put(entry)
             except BaseException as e:  # re-raised by the consumer
                 err.append(e)
             finally:
-                while not stop.is_set():
-                    try:
-                        q.put(sentinel, timeout=0.1)
-                        break
-                    except queue.Full:
-                        pass
+                put(sentinel)
 
         t = threading.Thread(target=worker, daemon=True)
         t.start()
         try:
             while True:
-                entry = q.get()
+                # the consumer alone gets: a queue not empty gives at once
+                with maybe_wait(get_wait, q.empty):
+                    entry = q.get()
                 if entry is sentinel:
                     break
                 yield entry

@@ -1,18 +1,39 @@
-"""Phase timers for the engine hot path.
+"""Phase timers and profiler spans for the engine hot path.
 
-`Phases` accumulates wall seconds per named phase (scan / pack / dispatch /
-device_wait / format; all_reduce, a multi-process mesh's label sum, with
-the bytes it reduced), printed by `classify --profile` and read by
-`chip_smoke.py`.  Timers are host clocks: `dispatch` measures the enqueue
-of a batch's H2D copies and kernel launches, and `device_wait` the blocking
-D2H fetch of its results, which is where device time shows on the host.
-`all_reduce` is the host time of the call: the whole reduce under gloo
-(CUDA tensors staged through the host), the enqueue under NCCL.
+`Phases` accumulates wall seconds per named phase, printed by `classify
+--profile` and read by `chip_smoke.py` and the benchmark.  Timers are host
+clocks: `dispatch` measures the enqueue of a batch's H2D copies and kernel
+launches, and `device_wait` the blocking D2H fetch of its results, which
+is where device time shows on the host.  `all_reduce` is the host time of
+the call: the whole reduce under gloo (CUDA tensors staged through the
+host), the enqueue under NCCL.
+
+While a collector is active (`collect()`, `current` set), every phase is
+also a `torch.profiler.record_function` span named `clark.<phase>`, from
+whichever engine thread runs it, so a trace lines each span up with the
+device's events on one clock.  With no collector nothing is recorded and
+no torch call is made.  The phases of a classify call, by thread:
+
+- scan thread (`engine._ScanStream`): `scan_cut`, the record-cut search
+  of a chunk; `scan`, its native record scan.
+- dispatch worker (`engine._pipelined`): `scan_wait`, the planner waiting
+  for the scan (starved); `pack`; `dispatch`; `queue_full`, a dispatched
+  batch waiting for room in the bounded queue (blocked).
+- fetch workers (`engine._pipelined_pool`): `device_wait`.
+- the caller: `count_reads`, `classify_bytes`'s serial read count;
+  `batch_wait`, waiting for a dispatched batch; `fetch_wait`, waiting for
+  a fetch; `format`, the native format and the caller's own time with
+  the rows; `rows_held`, inside `format`, from each yield of a row chunk
+  until the caller asks for the next.
+- `fill` and `drain` (`Edges`), totals with no span, as they cross
+  threads: a call's start until its first batch is dispatched, and its
+  last batch's dispatch until its last row chunk is taken.
 
 `trace(trace_dir)` captures a run with `torch.profiler` (`classify
 --trace-dir DIR`) and writes it to DIR as a Chrome trace
-(`<host>_<pid>.<ms>.pt.trace.json`): the host's operator calls and, on a
-CUDA device, every kernel with its device time.
+(`<host>_<pid>.<ms>.pt.trace.json`): the host's operator calls and the
+`clark.*` spans of every thread (it opens a collector where none is
+active) and, on a CUDA device, every kernel with its device time.
 
 A profiler session on the card can lose kernels, in torch.profiler's own
 stack: a session of torch alone loses them too (chip_trace_probe.py
@@ -58,7 +79,8 @@ _LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")
 
 class Phases:
     """Accumulating phase timers; updated from the engine's pipeline
-    threads (dispatch worker, fetch pool), so accumulation is locked."""
+    threads (scan thread, dispatch worker, fetch pool), so accumulation is
+    locked."""
 
     def __init__(self):
         self.totals: dict[str, float] = {}
@@ -68,11 +90,22 @@ class Phases:
 
     @contextlib.contextmanager
     def phase(self, name: str, nbytes: int = 0):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.add(name, time.perf_counter() - t0, nbytes)
+        """Time the block as `name`, inside a `clark.<name>` span."""
+        from torch.profiler import record_function
+
+        with record_function("clark." + name):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.add(name, time.perf_counter() - t0, nbytes)
+
+    def watch(self, name: str):
+        """Record `name` as watched, at 0 s and 0 calls where it has no
+        total yet: a wait that never happened reads 0, not missing."""
+        with self._lock:
+            self.totals.setdefault(name, 0.0)
+            self.counts.setdefault(name, 0)
 
     def add(self, name: str, seconds: float, nbytes: int = 0):
         with self._lock:
@@ -85,12 +118,39 @@ class Phases:
         lines = ["phase            total_s   calls   avg_ms"]
         for name, tot in sorted(self.totals.items(), key=lambda kv: -kv[1]):
             n = self.counts[name]
-            lines.append(f"{name:<16} {tot:8.3f} {n:7d} {1000*tot/n:8.2f}")
+            lines.append(f"{name:<16} {tot:8.3f} {n:7d} "
+                         f"{1000 * tot / max(n, 1):8.2f}")
         return "\n".join(lines)
+
+
+class Edges:
+    """A classify call's fill and drain, added to `phases` as totals:
+    `fill` from the call's start `t0` until its first batch's dispatch
+    returns, `drain` from its last batch's dispatch returning until its
+    last row chunk is taken.  `dispatched` runs in the dispatch worker,
+    `taken` and `close` in the caller, after the worker is joined."""
+
+    def __init__(self, phases: Phases, t0: float):
+        self.phases, self.t0 = phases, t0
+        self.last_dispatch = self.last_taken = None
+
+    def dispatched(self):
+        t = time.perf_counter()
+        if self.last_dispatch is None:
+            self.phases.add("fill", t - self.t0)
+        self.last_dispatch = t
+
+    def taken(self):
+        self.last_taken = time.perf_counter()
+
+    def close(self):
+        if self.last_dispatch is not None:  # then a chunk was taken too
+            self.phases.add("drain", self.last_taken - self.last_dispatch)
 
 
 # engine-global collector; re-assigned per run when profiling is enabled
 current: Phases | None = None
+_NO_SPAN = contextlib.nullcontext()  # reusable: it keeps no state
 
 
 @contextlib.contextmanager
@@ -104,13 +164,29 @@ def collect():
         current = prev
 
 
-@contextlib.contextmanager
 def maybe_phase(name: str, nbytes: int = 0):
-    if current is None:
-        yield
-    else:
-        with current.phase(name, nbytes):
-            yield
+    """The active collector's phase `name`, else a context that does
+    nothing."""
+    return _NO_SPAN if current is None else current.phase(name, nbytes)
+
+
+def maybe_wait(name: str | None, waits):
+    """maybe_phase(name) for a wait, where a collector is active and `name`
+    is given (else nothing is recorded and `waits` is not called): the
+    block is phase `name` where `waits()` says it is about to wait, and a
+    wait that does not happen adds no span and no seconds (Phases.watch)."""
+    if current is None or name is None:
+        return _NO_SPAN
+    if not waits():
+        current.watch(name)
+        return _NO_SPAN
+    return current.phase(name)
+
+
+def edges(t0: float) -> Edges | None:
+    """An Edges on the active collector for a call started at `t0`
+    (time.perf_counter), or None with no collector."""
+    return None if current is None else Edges(current, t0)
 
 
 def _launch_calls(events: list) -> list:
@@ -208,11 +284,11 @@ def block_events(events: list, warmup: int = TRACE_WARMUP,
 @contextlib.contextmanager
 def cuda_session(path: str, device=None):
     """Profile the block on a CUDA device with torch.profiler (CPU and
-    CUDA activity) and write its Chrome trace to `path`: TRACE_WARMUP
-    `add_` kernels and TRACE_LEAD_S of idle before the block, the device
-    synchronised after it, then TRACE_MARKERS closing markers.  Yields a
-    dict that, once the block and the session end, holds check_session's
-    verdict and the trace's `events`."""
+    CUDA activity, every thread's host events) and write its Chrome trace
+    to `path`: TRACE_WARMUP `add_` kernels and TRACE_LEAD_S of idle before
+    the block, the device synchronised after it, then TRACE_MARKERS closing
+    markers.  Yields a dict that, once the block and the session end, holds
+    check_session's verdict and the trace's `events`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -220,8 +296,8 @@ def cuda_session(path: str, device=None):
     # made before the session opens, on the current device by default
     w = torch.zeros(1, device="cuda" if device is None else device)
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 experimental_config=_all_threads()) as prof:
         for _ in range(TRACE_WARMUP):
             w.add_(1)
         torch.cuda.synchronize(device)
@@ -237,17 +313,32 @@ def cuda_session(path: str, device=None):
     rec.update(check_session(events), events=events)
 
 
+def _all_threads():
+    """The profiler's option that records host events (CPU ops and
+    `record_function` spans) from every thread, not only the one that
+    opened the session."""
+    from torch.profiler import _ExperimentalConfig
+
+    return _ExperimentalConfig(profile_all_threads=True)
+
+
 @contextlib.contextmanager
 def trace(trace_dir: str | None, cuda: bool = False):
     """Trace the block with torch.profiler into trace_dir (created where
-    missing) as `<host>_<pid>.<ms>.pt.trace.json`: CPU activity, or
-    through `cuda_session` where `cuda` is set, on the current device.
-    Yields a dict, filled on a CUDA session's end with check_session's
-    verdict; a session that is not whole still writes its trace and says
-    on stderr what it lost.  A no-op where trace_dir is empty."""
+    missing) as `<host>_<pid>.<ms>.pt.trace.json`: every thread's CPU
+    activity and `clark.*` spans (under a collector of its own where none
+    is active), or through `cuda_session` where `cuda` is set, on the
+    current device.  Yields a dict, filled on a CUDA session's end with
+    check_session's verdict; a session that is not whole still writes its
+    trace and says on stderr what it lost.  A no-op where trace_dir is
+    empty."""
     rec: dict = {}
     if not trace_dir:
         yield rec
+        return
+    if current is None:
+        with collect(), trace(trace_dir, cuda) as rec:
+            yield rec
         return
     os.makedirs(trace_dir, exist_ok=True)
     path = os.path.join(trace_dir, f"{socket.gethostname()}_{os.getpid()}."
@@ -266,6 +357,7 @@ def trace(trace_dir: str | None, cuda: bool = False):
         return
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+    with profile(activities=[ProfilerActivity.CPU],
+                 experimental_config=_all_threads()) as prof:
         yield rec
     prof.export_chrome_trace(path)
