@@ -174,23 +174,23 @@ class _ScanStream:
 
         def run():
             try:
-                buf = np.frombuffer(data, np.uint8)
                 if data[0:1] not in (b">", b"@"):
                     raise ValueError(
                         "failed to recognize the format of the file"
                     )
                 is_fq = data[0:1] == b"@"
-                cuts = iter_record_cuts(buf, is_fq, chunk_bytes)
-                while True:
-                    with maybe_phase("scan_cut"):
-                        cut = next(cuts, None)
-                    if cut is None:
-                        break
-                    s, e = cut
+                cuts = iter_record_cuts(data, is_fq, chunk_bytes)
+                s, n = 0, len(data)
+                while s < n:  # the cuts end with the one at n
+                    with maybe_phase("scan_cut") as span:
+                        s, e, looked = next(cuts)
+                        if span is not None:
+                            span.nbytes = looked
                     with maybe_phase("scan"):
                         part = native.scan_reads(
                             data, s, e, is_fasta=not is_fq
                         )[1:]
+                    s = e
                     with self._cond:
                         self._parts.append(part)
                         self._cum.append(self._cum[-1] + len(part[4]))

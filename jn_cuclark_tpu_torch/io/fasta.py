@@ -204,32 +204,20 @@ def window_starts(rs: ReadSet, k: int) -> tuple[np.ndarray, np.ndarray]:
     return starts[ok], rid[ok]
 
 
-def iter_record_cuts(buf: np.ndarray, is_fq: bool, chunk_bytes: int):
-    """Yield (start, end) record-aligned chunk bounds of an in-memory
-    FASTA/FASTQ uint8 buffer (same cut rule as iter_record_slabs: FASTA
-    before a '>' header line, FASTQ at line-phase 0), so each chunk can be
-    scanned independently with identical results."""
-    n = len(buf)
+def iter_record_cuts(data, is_fq: bool, chunk_bytes: int):
+    """Yield (start, end, looked) record-aligned chunk bounds of an
+    in-memory FASTA/FASTQ buffer (bytes, an mmap): FASTA before a '>'
+    header line, FASTQ at line-phase 0, a chunk widened past a record longer
+    than it, so each chunk can be scanned independently with identical
+    results.  Each cut is the native `record_cut`'s, which reads about one
+    record of a FASTA chunk, from its end; `looked` is the bytes it read."""
+    from ..utils import native
+
+    n = len(data)
     pos = 0
     while pos < n:
-        want = chunk_bytes
-        while True:
-            end = min(pos + want, n)
-            if end == n:
-                cut = n
-                break
-            seg = buf[pos:end]
-            nl = np.nonzero(seg == ord("\n"))[0]
-            if is_fq:
-                cand = nl[3::4]
-            else:
-                after = nl[nl + 1 < len(seg)] + 1
-                cand = after[seg[after] == ord(">")] - 1
-            if len(cand):
-                cut = pos + int(cand[-1]) + 1
-                break
-            want *= 2  # record larger than the chunk: widen
-        yield pos, cut
+        cut, looked = native.record_cut(data, pos, chunk_bytes, is_fq)
+        yield pos, cut, looked
         pos = cut
 
 
@@ -237,11 +225,10 @@ def iter_record_slabs(path: str, slab_bytes: int = 1 << 28):
     """Yield record-aligned byte slabs of a FASTA/FASTQ file.
 
     Streams a memory-mapped file in ~slab_bytes pieces cut at record
-    boundaries (FASTA: before a '>' header line; FASTQ: at a line index
-    divisible by 4), so classification of arbitrarily large inputs runs in
-    O(slab) host memory — the bounded-memory counterpart of the reference's
-    whole-file mmap scan (CuCLARK_hh.hh:522-539).  A single record larger
-    than slab_bytes widens that slab only.
+    boundaries (iter_record_cuts), so classification of arbitrarily large
+    inputs runs in O(slab) host memory — the bounded-memory counterpart of
+    the reference's whole-file mmap scan (CuCLARK_hh.hh:522-539).  A single
+    record larger than slab_bytes widens that slab only.
     """
     import mmap
 
@@ -253,32 +240,9 @@ def iter_record_slabs(path: str, slab_bytes: int = 1 << 28):
             first = mm[0:1]
             if first not in (b">", b"@"):
                 raise ValueError("failed to recognize the format of the file")
-            is_fq = first == b"@"
-            n = len(mm)
-            pos = 0
-            while pos < n:
-                want = slab_bytes
-                while True:
-                    end = min(pos + want, n)
-                    if end == n:
-                        cut = n
-                        break
-                    buf = np.frombuffer(mm, np.uint8, count=end - pos, offset=pos)
-                    nl = np.nonzero(buf == ord("\n"))[0]
-                    if is_fq:
-                        # pos is always at line-phase 0; cut after the last
-                        # newline completing a 4-line record
-                        cand = nl[3::4]
-                    else:
-                        after = nl[nl + 1 < len(buf)] + 1
-                        cand = after[buf[after] == ord(">")] - 1
-                    del buf  # release the mmap view so close() succeeds
-                    if len(cand):
-                        cut = pos + int(cand[-1]) + 1
-                        break
-                    want *= 2  # record larger than the slab: widen
+            cuts = iter_record_cuts(mm, first == b"@", slab_bytes)
+            for pos, cut, _ in cuts:
                 yield bytes(mm[pos:cut])
-                pos = cut
 
 
 def iter_merged_slabs(path1: str, path2: str, slab_bytes: int = 1 << 28):

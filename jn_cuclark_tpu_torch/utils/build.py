@@ -1,7 +1,8 @@
 """Build shared libraries from the repository's sources at first use.
 
-The port ships sources only: the native host runtime (`native/clark_native.cpp`)
-and the CUDA kernels (`ops/kernels/classify.cu`) are compiled into
+The port ships sources only: the native host runtime (`native/clark_native.cpp`
+and the port's `native/record_cut.cpp`) and the CUDA kernels
+(`ops/kernels/classify.cu`) are compiled into
 `jn_cuclark_tpu_torch/_build/` the first time a process needs them.  A build
 is keyed by a hash of its sources and its command line, so an edited source
 rebuilds and an unchanged one is reused.

@@ -1,10 +1,11 @@
-"""ctypes bindings for the native C++ host runtime (`native/clark_native.cpp`).
+"""ctypes bindings for the native C++ host runtime (`native/clark_native.cpp`,
+with the port's own `jn_cuclark_tpu_torch/native/record_cut.cpp`).
 
-The runtime (FASTA/FASTQ record scan, the paired-end merge, 2-bit packing,
-`%g` CSV formatting, k-mer extraction, the host DB-build aggregate, DB
-serialization and the abundance scan of result CSVs) is compiled from the
-repository's source at first use with `g++ -O3 -fPIC -fopenmp -shared`
-(utils/build.py); the committed `native/libclark_native.so` is not loaded,
+The runtime (FASTA/FASTQ record scan and record cuts, the paired-end merge,
+2-bit packing, `%g` CSV formatting, k-mer extraction, the host DB-build
+aggregate, DB serialization and the abundance scan of result CSVs) is
+compiled from the repository's sources at first use with
+`g++ -O3 -fPIC -fopenmp -shared` (utils/build.py); the committed `native/libclark_native.so` is not loaded,
 because it was built with `-march=native` on another host.  The port has
 no pure-numpy fallback for these entry points: a failed build raises.
 """
@@ -26,6 +27,9 @@ _U8P = ctypes.POINTER(ctypes.c_uint8)
 _U16P = ctypes.POINTER(ctypes.c_uint16)
 
 SOURCE = os.path.join(REPO_ROOT, "native", "clark_native.cpp")
+CUT_SOURCE = os.path.join(
+    REPO_ROOT, "jn_cuclark_tpu_torch", "native", "record_cut.cpp"
+)
 
 _lib = None
 _lock = threading.Lock()
@@ -34,7 +38,8 @@ _lock = threading.Lock()
 def _compile_command(out: str) -> list[str]:
     # `g++` from PATH, not $CXX: the runtime needs OpenMP (libgomp), which
     # a wrapper compiler named by $CXX may lack
-    return ["g++", "-O3", "-fPIC", "-fopenmp", "-shared", "-o", out, SOURCE]
+    return ["g++", "-O3", "-fPIC", "-fopenmp", "-shared", "-o", out, SOURCE,
+            CUT_SOURCE]
 
 
 def _load():
@@ -43,7 +48,8 @@ def _load():
         if _lib is not None:
             return _lib
         lib = ctypes.CDLL(
-            build_library("clark_native", [SOURCE], _compile_command)
+            build_library("clark_native", [SOURCE, CUT_SOURCE],
+                          _compile_command)
         )
         lib.scan_fasta.restype = ctypes.c_int64
         lib.scan_fasta.argtypes = (
@@ -51,6 +57,11 @@ def _load():
         )
         lib.scan_fastq.restype = ctypes.c_int64
         lib.scan_fastq.argtypes = lib.scan_fasta.argtypes
+        lib.record_cut.restype = ctypes.c_int64
+        lib.record_cut.argtypes = [
+            _U8P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int32, _I64P,
+        ]
         lib.pack_batch.restype = None
         lib.pack_batch.argtypes = [
             _U8P, ctypes.c_int64, _I64P, _I64P, ctypes.c_int64, _U64P, _U64P,
@@ -146,7 +157,11 @@ def scan_reads(
     returned offsets are absolute into `data`.  Pass is_fasta when scanning
     a chunk of a larger buffer: the format belongs to the WHOLE file (its
     first byte), and a malformed header landing on a chunk boundary must not
-    change how that chunk is scanned."""
+    change how that chunk is scanned.
+
+    The bytes are read once, by the native scan: its arrays start at one
+    read a 128 bytes and, where the reads overflow them, grow twofold and
+    the scan runs again."""
     lib = _load()
     arr, _ = _u8(data)
     if end is None:
@@ -164,18 +179,10 @@ def scan_reads(
             is_fasta = False
         else:
             raise ValueError("failed to recognize the format of the file")
-    if is_fasta:
-        fn = lib.scan_fasta
-        cap = int(np.count_nonzero(seg == ord(">"))) + 16
-    else:
-        fn = lib.scan_fastq
-        cap = int(np.count_nonzero(seg == ord("\n"))) // 4 + 16
+    fn = lib.scan_fasta if is_fasta else lib.scan_fastq
+    cap = n // 128 + 16
     while True:
-        ns = np.zeros(cap, np.int64)
-        ne = np.zeros(cap, np.int64)
-        ss = np.zeros(cap, np.int64)
-        se = np.zeros(cap, np.int64)
-        ln = np.zeros(cap, np.int64)
+        ns, ne, ss, se, ln = (np.empty(cap, np.int64) for _ in range(5))
         r = fn(dp, n, cap, _p(ns, _I64P), _p(ne, _I64P), _p(ss, _I64P),
                _p(se, _I64P), _p(ln, _I64P))
         if r == -2:
@@ -184,10 +191,29 @@ def scan_reads(
         if r < 0:
             raise ValueError("scan failed")
         break
+    ns, ne, ss, se, ln = ns[:r], ne[:r], ss[:r], se[:r], ln[:r]
     if start:
         for a in (ns, ne, ss, se):
             a += start
-    return is_fasta, ns[:r], ne[:r], ss[:r], se[:r], ln[:r]
+    return is_fasta, ns, ne, ss, se, ln
+
+
+def record_cut(data, pos: int, want: int, is_fq: bool) -> tuple[int, int]:
+    """(cut, looked): the end of the record-aligned chunk of `data` (any
+    buffer: bytes, an mmap) that starts at the record boundary `pos`, for a
+    window of `want` bytes, and the bytes the search read.  FASTA cuts
+    before the last '>' that follows a newline in the window, searched from
+    the window's end; FASTQ after the last newline whose count from pos is
+    a multiple of 4; a window that reaches the end cuts there, and one with
+    no cut doubles.  No view of `data` outlives the call, so an mmap can be
+    closed between calls."""
+    if want < 1:
+        raise ValueError(f"a chunk of {want} bytes holds no record")
+    lib = _load()
+    arr, dp = _u8(data)
+    looked = ctypes.c_int64()
+    cut = lib.record_cut(dp, len(arr), pos, want, is_fq, ctypes.byref(looked))
+    return cut, looked.value
 
 
 def abundance_scan(

@@ -14,8 +14,9 @@ whichever engine thread runs it, so a trace lines each span up with the
 device's events on one clock.  With no collector nothing is recorded and
 no torch call is made.  The phases of a classify call, by thread:
 
-- scan thread (`engine._ScanStream`): `scan_cut`, the record-cut search
-  of a chunk; `scan`, its native record scan.
+- scan thread (`engine._ScanStream`): `scan_cut`, the native record-cut
+  search of a chunk from its end, with the bytes it read as the phase's
+  `nbytes`; `scan`, its native record scan.
 - dispatch worker (`engine._pipelined`): `scan_wait`, the planner waiting
   for the scan (starved); `pack`; `dispatch`; `queue_full`, a dispatched
   batch waiting for room in the bounded queue (blocked).
@@ -77,6 +78,16 @@ TRACE_MARKERS = 32  # closing marker kernels a CUDA session runs after it
 _LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")
 
 
+class Span:
+    """A phase's block as it runs: `nbytes`, the bytes it read, is added to
+    the phase's total when the block ends."""
+
+    __slots__ = ("nbytes",)
+
+    def __init__(self, nbytes: int = 0):
+        self.nbytes = nbytes
+
+
 class Phases:
     """Accumulating phase timers; updated from the engine's pipeline
     threads (scan thread, dispatch worker, fetch pool), so accumulation is
@@ -90,15 +101,17 @@ class Phases:
 
     @contextlib.contextmanager
     def phase(self, name: str, nbytes: int = 0):
-        """Time the block as `name`, inside a `clark.<name>` span."""
+        """Time the block as `name`, inside a `clark.<name>` span; the
+        block may set the bytes it read on the `Span` it is given."""
         from torch.profiler import record_function
 
         with record_function("clark." + name):
+            span = Span(nbytes)
             t0 = time.perf_counter()
             try:
-                yield
+                yield span
             finally:
-                self.add(name, time.perf_counter() - t0, nbytes)
+                self.add(name, time.perf_counter() - t0, span.nbytes)
 
     def watch(self, name: str):
         """Record `name` as watched, at 0 s and 0 calls where it has no
@@ -165,8 +178,8 @@ def collect():
 
 
 def maybe_phase(name: str, nbytes: int = 0):
-    """The active collector's phase `name`, else a context that does
-    nothing."""
+    """The active collector's phase `name` (its block is given a `Span`),
+    else a context that does nothing (and gives None)."""
     return _NO_SPAN if current is None else current.phase(name, nbytes)
 
 
