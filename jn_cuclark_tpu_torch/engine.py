@@ -1067,7 +1067,7 @@ class Classifier:
             host = host.view(np.int32)
             if dev.type != "cuda":
                 return torch.from_numpy(host), None
-            with maybe_phase("chunk_upload"):
+            with maybe_phase("chunk_upload", host.nbytes):
                 return self._upload_chunk(host, dev)
 
         def upload(j):
@@ -1201,12 +1201,13 @@ class Classifier:
                                   get_wait="batch_wait")
         for bi, c in self._pipelined_pool(entries, fetch, workers=2, depth=2,
                                           wait="fetch_wait"):
-            if strategy == "labels":
-                acc[bi] = [c] if acc[bi] is None else acc[bi] + [c]
-            elif acc[bi] is None:
-                acc[bi] = c
-            else:
-                acc[bi] += c
+            with maybe_phase("cycle_accumulate"):
+                if strategy == "labels":
+                    acc[bi] = [c] if acc[bi] is None else acc[bi] + [c]
+                elif acc[bi] is None:
+                    acc[bi] = c
+                else:
+                    acc[bi] += c
 
     def _cycled_finish(self, specs, acc, strategy, lengths, paired, extended,
                        formatter, hit_stats=None):
@@ -1221,33 +1222,8 @@ class Classifier:
         cnt_g = (np.zeros((n_reads, self.n_targets + 1), np.int32)
                  if extended else None)
         for (idx, _, _), got in zip(specs, acc):
-            nb = len(idx)
-            if strategy == "labels":
-                lab = got[0] if len(got) == 1 else np.concatenate(got, axis=1)
-                if lab.dtype == np.int16:  # u16 bits: widen as unsigned
-                    lab = lab.view(np.uint16)
-                lab = torch.from_numpy(lab.astype(np.int32)).to(self.device)
-                with torch.inference_mode():
-                    total, ib, b, sb, counts = (
-                        device_pipeline.score_from_labels(
-                            lab, n_targets=self.n_targets, extended=extended))
-                res_g[:, idx] = torch.stack(
-                    [total, ib, b, sb])[:, :nb].cpu().numpy()
-                if extended:
-                    cnt_g[idx] = counts[:nb].cpu().numpy()
-                continue
-            t = got[:nb, 1:]
-            best = t.max(axis=1) if t.shape[1] else np.zeros(nb, np.int32)
-            ib = t.argmax(axis=1) if t.shape[1] else np.zeros(nb, np.int64)
-            masked = t.copy()
-            if t.shape[1]:
-                masked[np.arange(nb), ib] = -1
-            res_g[0, idx] = t.sum(axis=1, dtype=np.int64)
-            res_g[1, idx] = np.where(best > 0, ib + 1, 0)
-            res_g[2, idx] = best
-            res_g[3, idx] = np.maximum(masked.max(axis=1, initial=0), 0)
-            if extended:
-                cnt_g[idx] = got[:nb]
+            with maybe_phase("cycle_finish"):
+                self._cycled_score(idx, got, strategy, extended, res_g, cnt_g)
         if hit_stats is not None and extended:
             hit_stats.update_counts(cnt_g)
         CH = 1 << 16
@@ -1255,6 +1231,36 @@ class Classifier:
             r1 = min(r0 + CH, n_reads)
             yield formatter(r0, r1, *res_g[:, r0:r1], norm_all[r0:r1],
                             cnt_g[r0:r1] if extended else None)
+
+    def _cycled_score(self, idx, got, strategy, extended, res_g, cnt_g):
+        """Score one batch's accumulated cycles into the file-order
+        results res_g [4, n_reads] (and cnt_g's dense rows, extended)."""
+        nb = len(idx)
+        if strategy == "labels":
+            lab = got[0] if len(got) == 1 else np.concatenate(got, axis=1)
+            if lab.dtype == np.int16:  # u16 bits: widen as unsigned
+                lab = lab.view(np.uint16)
+            lab = torch.from_numpy(lab.astype(np.int32)).to(self.device)
+            with torch.inference_mode():
+                total, ib, b, sb, counts = device_pipeline.score_from_labels(
+                    lab, n_targets=self.n_targets, extended=extended)
+            res_g[:, idx] = torch.stack(
+                [total, ib, b, sb])[:, :nb].cpu().numpy()
+            if extended:
+                cnt_g[idx] = counts[:nb].cpu().numpy()
+            return
+        t = got[:nb, 1:]
+        best = t.max(axis=1) if t.shape[1] else np.zeros(nb, np.int32)
+        ib = t.argmax(axis=1) if t.shape[1] else np.zeros(nb, np.int64)
+        masked = t.copy()
+        if t.shape[1]:
+            masked[np.arange(nb), ib] = -1
+        res_g[0, idx] = t.sum(axis=1, dtype=np.int64)
+        res_g[1, idx] = np.where(best > 0, ib + 1, 0)
+        res_g[2, idx] = best
+        res_g[3, idx] = np.maximum(masked.max(axis=1, initial=0), 0)
+        if extended:
+            cnt_g[idx] = got[:nb]
 
     def _probe_cols(self, max_len, stride: int) -> int:
         """Probed-window count for a batch whose longest read is max_len at

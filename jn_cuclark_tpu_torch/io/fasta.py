@@ -31,6 +31,7 @@ import os
 import numpy as np
 
 from ..kmer import CODE_LUT
+from ..utils.profiling import maybe_phase
 
 _SEP = np.zeros(256, dtype=bool)
 for _c in b" \t\n":
@@ -258,7 +259,8 @@ def iter_merged_slabs(path1: str, path2: str, slab_bytes: int = 1 << 28):
                 raise ValueError("empty input file")
         with mmap.mmap(f1.fileno(), 0, access=mmap.ACCESS_READ) as m1, \
                 mmap.mmap(f2.fileno(), 0, access=mmap.ACCESS_READ) as m2:
-            yield from native.merge_paired_stream(m1, m2, slab_bytes)
+            yield from _merged(native.merge_paired_stream(m1, m2,
+                                                          slab_bytes))
 
 
 def merge_paired(data1: bytes, data2: bytes) -> bytes:
@@ -269,7 +271,22 @@ def merge_paired(data1: bytes, data2: bytes) -> bytes:
         raise ValueError("paired-end reads must be FASTQ files")
     from ..utils import native
 
-    return b"".join(native.merge_paired_stream(data1, data2))
+    return b"".join(_merged(native.merge_paired_stream(data1, data2)))
+
+
+def _merged(chunks):
+    """The merger's chunks, each made inside the `merge` phase.  Closing
+    this closes the merger, which lets go of its input's buffers (an mmap
+    with views still exported cannot close)."""
+    try:
+        while True:
+            with maybe_phase("merge"):
+                chunk = next(chunks, None)
+            if chunk is None:
+                return
+            yield chunk
+    finally:
+        chunks.close()
 
 
 def _merge_paired_py(data1: bytes, data2: bytes) -> bytes:

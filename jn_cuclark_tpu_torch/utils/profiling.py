@@ -30,6 +30,19 @@ no torch call is made.  The phases of a classify call, by thread:
   threads: a call's start until its first batch is dispatched, and its
   last batch's dispatch until its last row chunk is taken.
 
+A cycled call (`db_cycles > 1`) scans and packs the whole input in the
+caller (`scan`, `pack`), then runs one pass a table chunk: `dispatch`
+and `queue_full` in the dispatch worker, `device_wait` in the fetch
+workers, and in the caller `batch_wait`, `fetch_wait` and
+`cycle_accumulate`, the host add (or append) of each batch's fetched
+chunk result.  `chunk_upload` is a chunk's copy to the card, with the
+bytes copied as its `nbytes`, in the caller for the first pass and in the
+prefetch thread for the others.  Then the caller's `cycle_finish` scores
+each batch (the host top-2 over the summed counts, or the device top-2
+over the labels) and `format` writes its rows.  `merge` is each chunk of
+paired FASTQ merged (`io.fasta.merge_paired`, `iter_merged_slabs`), in
+the thread that draws it.
+
 `trace(trace_dir)` captures a run with `torch.profiler` (`classify
 --trace-dir DIR`) and writes it to DIR as a Chrome trace
 (`<host>_<pid>.<ms>.pt.trace.json`): the host's operator calls and the

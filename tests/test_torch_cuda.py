@@ -18,7 +18,7 @@ from jn_cuclark_tpu_torch.engine import Classifier
 from jn_cuclark_tpu_torch.io import dbformat
 from jn_cuclark_tpu_torch.ops import kernels, lookup, radix_table, score
 from jn_cuclark_tpu_torch.params import Profile
-from jn_cuclark_tpu_torch.utils import native
+from jn_cuclark_tpu_torch.utils import native, profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -218,11 +218,10 @@ def test_top2_takes_its_form_on_the_card(dev, n_targets, w, form):
         assert torch.equal(g, x)
 
 
-def test_cycled_uploads_under_concurrent_calls(dev, tmp_path, monkeypatch):
-    """Chunks stream through the two pinned staging slices (4 KiB here, so
-    one chunk takes dozens of them) while two threads classify through one
-    cycled Classifier: every call writes the resident run's bytes."""
-    monkeypatch.setattr(engine, "STAGING_SLICE_BYTES", 4096)
+def _cycled_inputs(tmp_path):
+    """(Classifier.load's first arguments, FASTA reads) of a random DB of
+    8 targets at k = 21: a quarter of the 2,000 reads random, the others
+    from its genome."""
     k, T = 21, 8
     rng = np.random.default_rng(9)
     genome = chip_smoke.ACGT[rng.integers(0, 4, size=40_000)].tobytes()
@@ -241,8 +240,16 @@ def test_cycled_uploads_under_concurrent_calls(dev, tmp_path, monkeypatch):
         s = (genome[p : p + ln] if i % 4
              else chip_smoke.ACGT[rng.integers(0, 4, size=ln)].tobytes())
         recs.append(b">c%d\n%s\n" % (i, s))
-    fa = b"".join(recs)
-    args = (str(tmp_path), str(tmp_path / "targets.txt"), prof, k)
+    return (str(tmp_path), str(tmp_path / "targets.txt"), prof, k), \
+        b"".join(recs)
+
+
+def test_cycled_uploads_under_concurrent_calls(dev, tmp_path, monkeypatch):
+    """Chunks stream through the two pinned staging slices (4 KiB here, so
+    one chunk takes dozens of them) while two threads classify through one
+    cycled Classifier: every call writes the resident run's bytes."""
+    monkeypatch.setattr(engine, "STAGING_SLICE_BYTES", 4096)
+    args, fa = _cycled_inputs(tmp_path)
     want = b"".join(Classifier.load(*args, device=dev).classify_bytes(fa)[0])
     clf = Classifier.load(*args, device=dev, db_cycles=3)
     assert clf.table_chunks[0]["slots"].nbytes > 16 * 4096
@@ -250,6 +257,18 @@ def test_cycled_uploads_under_concurrent_calls(dev, tmp_path, monkeypatch):
         got = list(ex.map(lambda _: b"".join(clf.classify_bytes(fa)[0]),
                           range(6)))
     assert got == [want] * 6
+
+
+def test_chunk_upload_counts_the_chunks_bytes(dev, tmp_path):
+    """Under a collector a cycled call records one `chunk_upload` a chunk,
+    its `nbytes` the bytes of the chunks copied to the card."""
+    args, fa = _cycled_inputs(tmp_path)
+    clf = Classifier.load(*args, device=dev, db_cycles=3)
+    with profiling.collect() as ph:
+        b"".join(clf.classify_bytes(fa)[0])
+    assert ph.counts["chunk_upload"] == 3
+    assert ph.nbytes["chunk_upload"] == sum(
+        c["slots"].nbytes for c in clf.table_chunks)
 
 
 def test_grouped_probes_on_hot_rows(dev):

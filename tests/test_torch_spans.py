@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from jn_cuclark_tpu_torch.engine import BatchPlan, Classifier
+from jn_cuclark_tpu_torch.io import fasta
 from jn_cuclark_tpu_torch.utils import native, profiling
 
 from .test_torch_engine import GOLD, GOLDENS, golden_setup
@@ -75,11 +76,11 @@ def paced(clf, monkeypatch):
     monkeypatch.setattr(torch.Tensor, "cpu", late_cpu)
 
 
-def run_bytes(clf, data, hold_s=0.0):
+def run_bytes(clf, data, hold_s=0.0, paired=False):
     """classify_bytes run to its end, the caller holding each row chunk
     hold_s; returns (CSV body, row chunks, the call's seconds)."""
     t = time.perf_counter()
-    rows, _ = clf.classify_bytes(data)
+    rows, _ = clf.classify_bytes(data, paired=paired)
     out = []
     for chunk in rows:
         out.append(chunk)
@@ -205,3 +206,83 @@ def test_spans_are_not_launch_calls(lost):
              for i, n in enumerate(("scan", "pack", "format", "fetch_wait"))]
     assert profiling.check_session(evs + spans, warmup=8, markers=4) == \
         profiling.check_session(evs, warmup=8, markers=4)
+
+
+P1, P2 = (os.path.join(GOLD, "csv", f"p{m}.fq") for m in (1, 2))
+PAIRED_CSV = os.path.join(GOLD, "csv", "paired.csv")
+
+
+def _load(tmp_path, cycles):
+    db, targets = golden_setup("fa", tmp_path)
+    _, _, _, prof, k, _, _ = GOLDENS["fa"]
+    return Classifier.load(db, targets, prof, k, device="cpu",
+                           db_cycles=cycles, plan=BatchPlan(max_reads=16))
+
+
+@pytest.mark.parametrize("cycles", [2, 3])
+def test_cycled_call_spans(tmp_path, cycles):
+    """A cycled call adds each batch's result once a chunk
+    (`cycle_accumulate`) and scores each batch once (`cycle_finish`); on
+    the CPU no chunk is copied (`chunk_upload` is the card's)."""
+    clf = _load(tmp_path, cycles)
+    data = open(READS, "rb").read()
+    with profiling.collect() as ph:
+        body, _, wall = run_bytes(clf, data)
+    assert body.count(b"\n") == 202
+    batches = ph.counts["pack"]  # length-bucketed over the whole input
+    assert batches > 1
+    assert ph.counts["cycle_accumulate"] == batches * cycles
+    assert ph.counts["dispatch"] == batches * cycles
+    assert ph.counts["cycle_finish"] == batches
+    assert "chunk_upload" not in ph.counts
+    assert ph.totals["cycle_accumulate"] + ph.totals["cycle_finish"] <= wall
+
+
+@pytest.mark.parametrize("mode", ["bytes", "file"])
+def test_paired_call_records_merge(tmp_path, mode):
+    """The paired merge is the `merge` phase, a span a merged chunk, in
+    `merge_paired` and in `classify_file`'s slabs; the rows are the
+    golden's."""
+    clf = _load(tmp_path, 1)
+    with profiling.collect() as ph:
+        if mode == "bytes":
+            merged = fasta.merge_paired(open(P1, "rb").read(),
+                                        open(P2, "rb").read())
+            body = run_bytes(clf, merged, paired=True)[0]
+        else:
+            out = str(tmp_path / "paired")
+            clf.classify_file(P1, out, paired_path=P2, slab_bytes=4096)
+            body = open(out + ".csv", "rb").read().split(b"\n", 1)[1]
+    assert body == open(PAIRED_CSV, "rb").read().split(b"\n", 1)[1]
+    assert ph.counts["merge"] >= (1 if mode == "bytes" else 2)
+
+
+def test_no_two_phases_on_a_thread_overlap(tmp_path):
+    """Spans on one thread follow one another (two phases would count the
+    same seconds twice), but `rows_held`, which lies inside `format` by
+    design: a cycled call, and a paired call from bytes and from files."""
+    (tmp_path / "c").mkdir()
+    cycled, resident = _load(tmp_path / "c", 3), _load(tmp_path, 1)
+    fq = open(P1, "rb").read(), open(P2, "rb").read()
+    with profiling.trace(str(tmp_path / "trace")):
+        run_bytes(cycled, open(READS, "rb").read())
+        run_bytes(resident, fasta.merge_paired(*fq), paired=True)
+        resident.classify_file(P1, str(tmp_path / "p"), paired_path=P2,
+                               slab_bytes=4096)
+    (name,) = os.listdir(tmp_path / "trace")
+    with open(tmp_path / "trace" / name) as f:
+        evs = json.load(f)["traceEvents"]
+    by_tid: dict = {}
+    for e in evs:
+        if e.get("cat") == "user_annotation" and e["name"].startswith(
+                "clark.") and e["name"] != "clark.rows_held":
+            by_tid.setdefault(e["tid"], []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                 e["name"]))
+    names = {n for spans in by_tid.values() for _, _, n in spans}
+    for phase in ("cycle_accumulate", "cycle_finish", "merge", "format"):
+        assert "clark." + phase in names, phase
+    for spans in by_tid.values():
+        spans.sort()
+        for (_, end, a), (start, _, b) in zip(spans, spans[1:]):
+            assert start >= end - 0.002, (a, b)  # exported to 0.001 us
