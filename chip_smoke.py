@@ -501,6 +501,34 @@ def k5_cases(seed: int = 0):
         yield label, torch.from_numpy(lab), T
 
 
+def k5_prior_cases(seed: int = 0):
+    """(label, lab [R, W] int32, prior [R, T+1] int32, T) on the CPU for
+    K5's small form started from a prior (a cycled call's last pass):
+    ties that only the prior makes (the lowest target wins), all-zero rows
+    (NA), rows whose hits are all in the prior, T + 1 at the small form's
+    edge (4,096), W = 1, and R not a multiple of the small form's reads per
+    block at the cycled cell's shape (T = 16, W = 224)."""
+    rng = np.random.default_rng(seed)
+    yield "prior ties T=9", np.array(
+        [[3, 3, 5, 0], [2, 9, 9, 1], [0, 0, 0, 0], [4, 4, 4, 4]],
+        np.int32), np.array(
+        [[0, 0, 0, 0, 0, 1, 0, 0, 0, 0], [0, 0, 1, 0, 0, 0, 0, 0, 0, 0],
+         [0, 0, 0, 0, 0, 0, 0, 0, 0, 0], [3, 0, 0, 0, 0, 0, 4, 0, 0, 4]],
+        np.int32), 9
+    yield "zero rows T=5", np.zeros((5, 7), np.int32), np.zeros((5, 6),
+                                                                np.int32), 5
+    only = rng.integers(0, 4, size=(11, 17)).astype(np.int32)
+    only[::3] = 0
+    yield "prior only T=16", np.zeros((11, 50), np.int32), only, 16
+    for label, T, R, W in (("T+1=4096", 4095, 19, 300), ("W=1 T=16", 16, 13, 1),
+                           ("ragged R T=16", 16, 4093, 224)):
+        lab = rng.integers(0, T + 1, size=(R, W)).astype(np.int32)
+        lab[::9] = 0
+        prior = rng.integers(0, 40, size=(R, T + 1)).astype(np.int32)
+        prior[::5] = 0
+        yield label, lab, prior, T
+
+
 def _index(keys: np.ndarray, rng, max_label: int = 65535):
     """(keys ascending as u64, labels1 in [1, max_label]) of distinct keys."""
     keys = np.unique(np.asarray(keys, dtype=np.uint64))
@@ -995,6 +1023,14 @@ def check_kernels(dev, big_tables: bool = True) -> int:
         rid = torch.arange(R, device=dev).repeat_interleave(W)
         counts = score.counts_from_hits_plain(lab.view(-1), rid, R, T)
         _same(f"K5 {label}", score.counts_top2(lab, T),
+              (counts,) + score.read_results_plain(counts))
+        n += 1
+    for label, lab, prior, T in k5_prior_cases():
+        lab, prior = torch.from_numpy(lab).to(dev), torch.from_numpy(prior).to(dev)
+        R, W = lab.shape
+        rid = torch.arange(R, device=dev).repeat_interleave(W)
+        counts = score.counts_from_hits_plain(lab.view(-1), rid, R, T) + prior
+        _same(f"K5 {label}", score.counts_top2(lab, T, prior),
               (counts,) + score.read_results_plain(counts))
         n += 1
     for label, keys, labels1, q in k9_cases():

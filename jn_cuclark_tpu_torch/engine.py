@@ -63,6 +63,7 @@ import queue
 import sys
 import threading
 import time
+import typing
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -80,7 +81,7 @@ from .io.fasta import (
 )
 from .io.targets import TargetsDef, parse_targets
 from .kmer import canonical_u64, window_values_le
-from .ops import device_pipeline, lookup, pack, radix_table, score
+from .ops import device_pipeline, kernels, lookup, pack, radix_table, score
 from .params import NBN, Profile
 from .utils import memory, native
 from .utils import profiling
@@ -295,6 +296,15 @@ class HitStats:
 def _to_dev(a: np.ndarray, dev) -> torch.Tensor:
     """A host u64 array on `dev` as int64 bit patterns."""
     return torch.from_numpy(a.view(np.int64)).to(dev)
+
+
+class _Scored(typing.NamedTuple):
+    """A cycled batch the card scored in its last cycle: its reads'
+    scalars [R, 4] int32 (total, ibest, best, sbest) and, for an extended
+    finish, their counts [R, T+1] (else None)."""
+
+    scalars: np.ndarray
+    counts: np.ndarray | None
 
 
 def _check_label_range(labels, table, n_targets: int):
@@ -916,7 +926,7 @@ class Classifier:
                 s["lengths"], s["io"][0], strategy, extended)
             s["acc"] = [None] * len(s["specs"])
         self._run_passes(strategy, [(s["packed"], s["acc"], s["pcs"])
-                                    for s in samples])
+                                    for s in samples], extended)
         outs = []
         for s in samples:
             out = s["result"] + ".csv"
@@ -983,7 +993,7 @@ class Classifier:
         specs, packed, pcs = self._cycled_prepare(lengths, packer, strategy,
                                                   extended)
         acc = [None] * len(specs)
-        self._run_passes(strategy, [(packed, acc, pcs)])
+        self._run_passes(strategy, [(packed, acc, pcs)], extended)
         yield from self._cycled_finish(specs, acc, strategy, lengths, paired,
                                        extended, formatter, hit_stats)
 
@@ -1029,20 +1039,35 @@ class Classifier:
         return min(max_reads, max(
             DENSE_COUNTS_BYTES // (4 * (self.n_targets + 1)), 1))
 
-    def _run_passes(self, strategy, inputs):
+    def _run_passes(self, strategy, inputs, extended=False):
         """One pass per table chunk over every input's batches; inputs are
-        (packed batches, accumulators, probe_cols) triples."""
+        (packed batches, accumulators, probe_cols) triples.  Where the card
+        finishes (_card_finishes), the last pass scores each batch."""
         if not any(packed for packed, _, _ in inputs):
             return
         n_passes, begin_pass, end_pass = self._cycle_passes(strategy)
+        card = self._card_finishes(strategy)
         for j in range(n_passes):
             pass_fn = begin_pass(j)
+            finish = card and j == n_passes - 1
             try:
                 for packed, acc, pcs in inputs:
                     self._cycled_accumulate(pass_fn, packed, acc, strategy,
-                                            pcs)
+                                            pcs, finish, extended)
             finally:
                 end_pass()
+
+    def _card_finishes(self, strategy) -> bool:
+        """Whether a cycled call's last pass scores each batch on the card:
+        the counts strategy on one device, where K5 takes its small form.
+        Its histogram then starts from the earlier passes' summed counts
+        (chunks hold disjoint rows), so its top-2 is the read's answer.  A
+        db mesh sums its shards' counts after each shard's K5, and K5's
+        other forms never scan the T columns, so there the top-2 stays on
+        the host (_cycled_score).  The labels strategy's finish is the
+        card's already."""
+        return (strategy == "counts" and self.sharded is None
+                and kernels.counts_form(self.n_targets + 1, 1) == "small")
 
     def _cycle_passes(self, strategy):
         """(n_passes, begin_pass(j) -> batch step, end_pass) over the
@@ -1126,11 +1151,11 @@ class Classifier:
                         use_stash, narrow=narrow, probe_cols=probe_cols, **kw,
                     )
             else:
-                def step(words, vwords, probe_cols=None):
+                def step(words, vwords, probe_cols=None, **finish):
                     return device_pipeline.classify_batch_counts_chunk(
                         cur["chunks"][None], sk, sl, words, vwords, start,
                         use_stash, n_targets=self.n_targets,
-                        probe_cols=probe_cols, **kw,
+                        probe_cols=probe_cols, **finish, **kw,
                     )
             return step
 
@@ -1178,23 +1203,35 @@ class Classifier:
             done.synchronize()  # both slices are free for the next upload
         return slots, done
 
-    def _cycled_accumulate(self, step, packed_batches, acc, strategy, pcs):
+    def _cycled_accumulate(self, step, packed_batches, acc, strategy, pcs,
+                           finish=False, extended=False):
         """Run one pass's step over every packed batch and accumulate on
         the host: a cycle's label grids are appended (they concatenate
-        along the window axis), counts add.  Dispatch runs in a worker
-        thread and the fetches overlap it."""
+        along the window axis), counts add.  With `finish` (the last pass,
+        _card_finishes) each batch's step starts from its summed counts and
+        returns the read's scalars, kept as a _Scored (with the final
+        counts where `extended`).  Dispatch runs in a worker thread and the
+        fetches overlap it."""
         dev = self.device
 
         def dispatch(item):
             bi, (words, vwords) = item
             with maybe_phase("dispatch"):
+                kw = {}
+                if finish:  # the earlier passes' counts (n_passes > 1)
+                    kw = dict(scores=True,
+                              prior=torch.from_numpy(acc[bi]).to(dev))
                 return bi, step(_to_dev(words, dev), _to_dev(vwords, dev),
-                                probe_cols=pcs[bi])
+                                probe_cols=pcs[bi], **kw)
 
         def fetch(item):
             bi, out = item
             with maybe_phase("device_wait"):
-                return bi, out.cpu().numpy()
+                if not finish:
+                    return bi, out.cpu().numpy()
+                scalars, counts = out
+                return bi, _Scored(scalars.cpu().numpy(),
+                                   counts.cpu().numpy() if extended else None)
 
         entries = self._pipelined(enumerate(packed_batches), dispatch,
                                   put_wait="queue_full",
@@ -1202,7 +1239,9 @@ class Classifier:
         for bi, c in self._pipelined_pool(entries, fetch, workers=2, depth=2,
                                           wait="fetch_wait"):
             with maybe_phase("cycle_accumulate"):
-                if strategy == "labels":
+                if finish:
+                    acc[bi] = c
+                elif strategy == "labels":
                     acc[bi] = [c] if acc[bi] is None else acc[bi] + [c]
                 elif acc[bi] is None:
                     acc[bi] = c
@@ -1213,29 +1252,40 @@ class Classifier:
                        formatter, hit_stats=None):
         """Score the accumulated batches, scatter to file order and yield
         the formatted CSV chunks.  Labels: one device top-2 (K3; K5 when
-        extended) over each batch's concatenated cycles.  Counts: the top-2
-        over the summed [R, T+1] counts on the host, as the JAX package's
-        read_results orders it (count desc, lowest target first)."""
+        extended) over each batch's concatenated cycles.  Counts: the card
+        scored each batch in its last pass where it could (_card_finishes),
+        else the top-2 over the summed [R, T+1] counts runs on the host, as
+        the JAX package's read_results orders it (count desc, lowest target
+        first).  Each batch's `cycle_finish` span carries the bytes of
+        counts the host's top-2 read (0 where the card scored)."""
         n_reads = len(lengths)
         norm_all = lengths - (NBN if paired else 0)
-        res_g = np.zeros((4, n_reads), np.int64)  # total, ibest, best, sbest
+        # a read's total, ibest, best, sbest side by side: a batch's scatter
+        # writes one 16-B row a read
+        res_g = np.zeros((n_reads, 4), np.int32)
         cnt_g = (np.zeros((n_reads, self.n_targets + 1), np.int32)
                  if extended else None)
         for (idx, _, _), got in zip(specs, acc):
-            with maybe_phase("cycle_finish"):
+            host = strategy == "counts" and not isinstance(got, _Scored)
+            with maybe_phase("cycle_finish", got.nbytes if host else 0):
                 self._cycled_score(idx, got, strategy, extended, res_g, cnt_g)
         if hit_stats is not None and extended:
             hit_stats.update_counts(cnt_g)
         CH = 1 << 16
         for r0 in range(0, n_reads, CH):
             r1 = min(r0 + CH, n_reads)
-            yield formatter(r0, r1, *res_g[:, r0:r1], norm_all[r0:r1],
+            yield formatter(r0, r1, *res_g[r0:r1].T, norm_all[r0:r1],
                             cnt_g[r0:r1] if extended else None)
 
     def _cycled_score(self, idx, got, strategy, extended, res_g, cnt_g):
         """Score one batch's accumulated cycles into the file-order
-        results res_g [4, n_reads] (and cnt_g's dense rows, extended)."""
+        results res_g [n_reads, 4] (and cnt_g's dense rows, extended)."""
         nb = len(idx)
+        if isinstance(got, _Scored):
+            res_g[idx] = got.scalars[:nb]
+            if extended:
+                cnt_g[idx] = got.counts[:nb]
+            return
         if strategy == "labels":
             lab = got[0] if len(got) == 1 else np.concatenate(got, axis=1)
             if lab.dtype == np.int16:  # u16 bits: widen as unsigned
@@ -1244,8 +1294,8 @@ class Classifier:
             with torch.inference_mode():
                 total, ib, b, sb, counts = device_pipeline.score_from_labels(
                     lab, n_targets=self.n_targets, extended=extended)
-            res_g[:, idx] = torch.stack(
-                [total, ib, b, sb])[:, :nb].cpu().numpy()
+            res_g[idx] = torch.stack(
+                [total, ib, b, sb], dim=1)[:nb].cpu().numpy()
             if extended:
                 cnt_g[idx] = counts[:nb].cpu().numpy()
             return
@@ -1255,10 +1305,9 @@ class Classifier:
         masked = t.copy()
         if t.shape[1]:
             masked[np.arange(nb), ib] = -1
-        res_g[0, idx] = t.sum(axis=1, dtype=np.int64)
-        res_g[1, idx] = np.where(best > 0, ib + 1, 0)
-        res_g[2, idx] = best
-        res_g[3, idx] = np.maximum(masked.max(axis=1, initial=0), 0)
+        res_g[idx] = np.stack([
+            t.sum(axis=1, dtype=np.int64), np.where(best > 0, ib + 1, 0), best,
+            np.maximum(masked.max(axis=1, initial=0), 0)], axis=1)
         if extended:
             cnt_g[idx] = got[:nb]
 

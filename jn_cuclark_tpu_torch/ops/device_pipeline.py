@@ -161,18 +161,26 @@ def _chunk_labels(slots_blk, stash_keys, stash_labels, words, vwords,
 def classify_batch_counts_chunk(
     slots_blk, stash_keys, stash_labels, words, vwords, start_row: int,
     use_stash: bool, *, k: int, m1: int, lb: int, n_targets: int,
-    probe_cols: int | None = None,
+    probe_cols: int | None = None, prior=None, scores: bool = False,
 ):
     """Out-of-core cycle step: per-read counts [R, T+1] int32 against ONE
     table chunk (K1 -> K7 -> miss mask -> K5's counts; its top-2 is not
     used).  Chunks hold disjoint rows, so counts add across cycles (the
     reference's swapDbParts + host-row merge, CuClarkDB.cu:776-815,
-    931-948)."""
+    931-948).
+
+    The last cycle passes the earlier cycles' sum as `prior` [R, T+1]
+    with `scores`: K5 starts from it, and the step returns (the reads'
+    final scalars [R, 4] int32: total, ibest, best, sbest; the final
+    counts [R, T+1])."""
     with torch.inference_mode():
         lab = _chunk_labels(slots_blk, stash_keys, stash_labels, words,
                             vwords, start_row, use_stash, k, m1, lb,
                             probe_cols)
-        return score.counts_top2(lab, n_targets)[0]
+        counts, total, ib, b, _, sb = score.counts_top2(lab, n_targets, prior)
+        if not scores:
+            return counts
+        return torch.stack([total, ib, b, sb], dim=1), counts
 
 
 def classify_batch_labels_chunk(

@@ -124,8 +124,8 @@ def _bind(name: str, lib):
                                    p, p, p, p, p],
             "launch_top2": [p, i64, i64, i32, i32, p, p, p, p, p, p],
             "launch_sort_top2": [p, i64, i64, i32, p, p, p, p, p, p, p],
-            "launch_counts_top2": [p, i64, i64, i32, i32, p, p, p, p, p, p,
-                                   p],
+            "launch_counts_top2": [p, p, i64, i64, i32, i32, p, p, p, p, p,
+                                   p, p],
             "launch_lookup": [p, p, p, u64, u64, i32, p, p, i64, p],
             "launch_counts_flat": [p, p, i64, i64, i32, p, p, p, p, p, p, p],
         },
@@ -490,24 +490,45 @@ def counts_form(t1: int, w: int) -> str:
     return "large" if w <= K5_TILE_W else "wide"
 
 
-def counts_top2(lab: torch.Tensor, n_targets: int):
+def counts_top2(lab: torch.Tensor, n_targets: int,
+                prior: torch.Tensor | None = None):
     """K5: (counts, total, ibest, best, isbest, sbest): counts [R, T+1]
     int32 of the per-window labels lab [R, W] (label+1 in [0, T]; column 0
-    collects misses) and read_results' top two over columns 1..T."""
+    collects misses) and read_results' top two over columns 1..T.  With
+    `prior` [R, T+1] int32 the counts start from it (the small form only,
+    check_prior)."""
     dev = lab.device
     _check("lab", lab, torch.int32, 2, dev)
     check_targets(n_targets)
     R, W = lab.shape
+    check_prior(prior, R, n_targets, W)
+    if prior is not None:
+        _check("prior", prior, torch.int32, 2, dev)
     form = K5_FORMS.index(counts_form(n_targets + 1, W))
     lib = load()
     counts = torch.empty((R, n_targets + 1), dtype=torch.int32, device=dev)
     outs = torch.empty((5, R), dtype=torch.int32, device=dev)
     total, ibest, best, isbest, sbest = outs
     _launch(lib, lib.launch_counts_top2, "counts_top2", dev,
-            lab.data_ptr(), R, W, n_targets + 1, form, counts.data_ptr(),
-            total.data_ptr(), ibest.data_ptr(), best.data_ptr(),
-            isbest.data_ptr(), sbest.data_ptr())
+            lab.data_ptr(), None if prior is None else prior.data_ptr(), R,
+            W, n_targets + 1, form, counts.data_ptr(), total.data_ptr(),
+            ibest.data_ptr(), best.data_ptr(), isbest.data_ptr(),
+            sbest.data_ptr())
     return counts, total, ibest, best, isbest, sbest
+
+
+def check_prior(prior: torch.Tensor | None, R: int, n_targets: int, w: int):
+    """Refuse a K5 `prior` of another shape than [R, T+1], or one at a
+    shape that does not take K5's small form (the other forms never scan
+    the T columns, so they have no histogram to start from)."""
+    if prior is None:
+        return
+    if tuple(prior.shape) != (R, n_targets + 1):
+        raise ValueError(f"prior must be [{R}, {n_targets + 1}], got "
+                         f"{tuple(prior.shape)}")
+    if counts_form(n_targets + 1, w) != "small":
+        raise ValueError("a prior needs K5's small form: T+1 <= "
+                         f"{K5_SMALL_T1}, got {n_targets + 1}")
 
 
 def lookup(index, q: torch.Tensor) -> torch.Tensor:

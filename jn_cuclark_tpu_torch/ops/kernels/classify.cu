@@ -1461,7 +1461,11 @@ sort_warp_kernel(const int* __restrict__ lab, long long R_rows, int W,
 //          conflicts it saves, on random labels and on runs of one label
 //          alike.  The block's rows lie back to back in shared memory as in
 //          `counts`, so they leave as one span of 16-B stores (head and
-//          tail masked: rows of 68 B are not 16-B aligned).
+//          tail masked: rows of 68 B are not 16-B aligned).  With a
+//          `prior` [R, T+1] the histograms start from its rows instead of
+//          zero: the last cycle of a cycled call passes the earlier
+//          cycles' summed counts (chunks hold disjoint rows, so counts
+//          add), and its top two are the read's final answer.
 //   large  T+1 above that and W <= K5_TILE_W: a block per read.  The at
 //          most W distinct labels go into an open-addressing table in
 //          shared memory (label -> count, a power of two >= 2W slots,
@@ -1558,7 +1562,8 @@ __device__ __forceinline__ void warp_top2_columns(const int* h, int T1,
 }
 
 __global__ void __launch_bounds__(K5_WARPS * 32)
-counts_small_kernel(const int* __restrict__ lab, long long R, long long W,
+counts_small_kernel(const int* __restrict__ lab,
+                    const int* __restrict__ prior, long long R, long long W,
                     int T1, int* __restrict__ counts, int* __restrict__ total,
                     int* __restrict__ ibest, int* __restrict__ best,
                     int* __restrict__ isbest, int* __restrict__ sbest) {
@@ -1566,7 +1571,10 @@ counts_small_kernel(const int* __restrict__ lab, long long R, long long W,
   int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   long long r0 = (long long)blockIdx.x * K5_WARPS;
   int nr = (int)min((long long)K5_WARPS, R - r0);
-  for (int j = threadIdx.x; j < nr * T1; j += blockDim.x) hist[j] = 0;
+  // the block's prior rows lie back to back, as its histograms do
+  const int* seed = prior ? prior + r0 * T1 : nullptr;
+  for (int j = threadIdx.x; j < nr * T1; j += blockDim.x)
+    hist[j] = seed ? __ldg(seed + j) : 0;
   __syncthreads();
   if (warp < nr) {  // uniform across the warp
     int* h = hist + warp * T1;
@@ -2296,11 +2304,15 @@ int launch_sort_top2(const void* lab, long long R, long long W, int form,
 }
 
 // form: kernels.counts_form(T1, W); refused where the shape does not fit.
-int launch_counts_top2(const void* lab, long long R, long long W, int T1,
-                       int form, void* counts, void* total, void* ibest,
-                       void* best, void* isbest, void* sbest, void* stream) {
+// prior: null, or [R, T1] counts the small form starts from (the other
+// forms refuse one).
+int launch_counts_top2(const void* lab, const void* prior, long long R,
+                       long long W, int T1, int form, void* counts,
+                       void* total, void* ibest, void* best, void* isbest,
+                       void* sbest, void* stream) {
   if (R == 0) return 0;
   if (R > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
+  if (prior && form != K5_SMALL) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (form == K5_SMALL) {
     if (T1 > K5_SMALL_T1) return (int)cudaErrorInvalidValue;
@@ -2308,8 +2320,8 @@ int launch_counts_top2(const void* lab, long long R, long long W, int T1,
     if (int rc = allow_smem((const void*)counts_small_kernel, smem)) return rc;
     counts_small_kernel<<<(unsigned)((R + K5_WARPS - 1) / K5_WARPS),
                           K5_WARPS * 32, smem, st>>>(
-        (const int*)lab, R, W, T1, (int*)counts, (int*)total, (int*)ibest,
-        (int*)best, (int*)isbest, (int*)sbest);
+        (const int*)lab, (const int*)prior, R, W, T1, (int*)counts,
+        (int*)total, (int*)ibest, (int*)best, (int*)isbest, (int*)sbest);
   } else if (form == K5_LARGE) {
     if (W > K5_TILE_W) return (int)cudaErrorInvalidValue;
     int log2cap = 1;

@@ -74,20 +74,26 @@ def u16_bits(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 32768, x - 65536, x).to(torch.int16)
 
 
-def counts_top2(lab: torch.Tensor, n_targets: int):
+def counts_top2(lab: torch.Tensor, n_targets: int,
+                prior: torch.Tensor | None = None):
     """(counts, total, index_best, best, index_sbest, s_best): counts
     [R, n_targets+1] int32 of each read's per-window label+1 values
-    (column 0 collects misses), then read_results over it."""
-    if lab.device.type == "cuda":
-        from . import kernels
+    (column 0 collects misses), added to `prior` [R, n_targets+1] int32
+    where one is given (K5's small form alone takes it), then read_results
+    over it."""
+    from . import kernels
 
-        return kernels.counts_top2(lab, n_targets)
+    if lab.device.type == "cuda":
+        return kernels.counts_top2(lab, n_targets, prior)
     _check_device(lab)
     R, W = lab.shape
+    kernels.check_prior(prior, R, n_targets, W)
     rid = torch.arange(R, dtype=torch.int64, device=lab.device)
     counts = counts_from_hits_plain(
         lab.reshape(-1), rid.repeat_interleave(W), R, n_targets
     )
+    if prior is not None:
+        counts = counts + prior
     return (counts,) + read_results_plain(counts)
 
 

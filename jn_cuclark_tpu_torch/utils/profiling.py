@@ -38,8 +38,12 @@ workers, and in the caller `batch_wait`, `fetch_wait` and
 chunk result.  `chunk_upload` is a chunk's copy to the card, with the
 bytes copied as its `nbytes`, in the caller for the first pass and in the
 prefetch thread for the others.  Then the caller's `cycle_finish` scores
-each batch (the host top-2 over the summed counts, or the device top-2
-over the labels) and `format` writes its rows.  `merge` is each chunk of
+each batch and `format` writes its rows.  Where the card scored a batch
+in its last pass (K5 starting from the earlier passes' counts, the counts
+strategy on one device) `cycle_finish` only scatters its scalars; where
+the top-2 over the summed counts runs on the host (a db mesh, K5's large
+forms) the span's `nbytes` is the count matrix it read; the labels
+strategy's finish is a device top-2 over the concatenated labels.  `merge` is each chunk of
 paired FASTQ merged (`io.fasta.merge_paired`, `iter_merged_slabs`), in
 the thread that draws it.
 

@@ -34,11 +34,13 @@ def test_kernels_equal_their_twins(dev):
     kernels.reset_launches()
     # + 2: the two kshift = 1 tables (big_tables), each probed twice;
     # + 13 + 1 + 9: K9's cases (each searched for its queries and for its
-    # stored keys) and its 48M-key index, K5's flat form's cases
+    # stored keys) and its 48M-key index, K5's flat form's cases; + 6:
+    # K5's small form started from a prior
     assert chip_smoke.check_kernels(dev) == (
-        21 + 10 + 45 + 12 + 12 + 13 + 29 + 9 + 2 + 13 + 1 + 9)
+        21 + 10 + 45 + 12 + 12 + 13 + 29 + 9 + 2 + 13 + 1 + 9 + 6)
     assert kernels.LAUNCHES == {"window_canonicals": 24, "probe": 10 + 2,
-                                "top2": 45, "sort_top2": 12, "counts_top2": 12,
+                                "top2": 45, "sort_top2": 12,
+                                "counts_top2": 12 + 6,
                                 "aggregate": 13, "probe_chunk": 29,
                                 "probe_dense": 18 + 2, "lookup": 13 * 2 + 1,
                                 "counts_flat": 9, "top2 small": 13,
@@ -62,6 +64,13 @@ def test_new_wrappers_reject_bad_input(dev):
         kernels.sort_top2(lab.to(torch.int64))
     with pytest.raises(ValueError):
         kernels.counts_top2(lab, 0)
+    prior = torch.zeros((2, 4097), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # K5's large form takes no prior
+        kernels.counts_top2(lab, 4096, prior)
+    with pytest.raises(ValueError):  # a prior of another shape
+        kernels.counts_top2(lab, 4, prior[:, :4])
+    with pytest.raises(TypeError):
+        kernels.counts_top2(lab, 4096 - 1, prior[:, :4096].long())
     canon = torch.zeros(4, dtype=torch.int64, device=dev)
     label = torch.zeros(4, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):  # label of another length

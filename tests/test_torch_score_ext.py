@@ -1,7 +1,8 @@
 """Extended scoring of the PyTorch port against the JAX package, on the CPU:
 score_from_labels in its three forms (K3 top-2, K4 sorted u16 grid + top-2,
-K5 dense counts + top-2, here their plain twins), and the dense-count twins
-counts_from_hits_plain / read_results_plain, all held to exact equality,
+K5 dense counts + top-2, here their plain twins; K5 started from a
+prior), and the dense-count twins counts_from_hits_plain /
+read_results_plain, all held to exact equality,
 on shapes at both sides of K5's and K4's form edges; and the forms' (K3's,
 K4's, K5's) and K1's launch plan's rules."""
 
@@ -9,6 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import chip_smoke
 
 from jn_cuclark_tpu.ops import device_pipeline as jdp
 from jn_cuclark_tpu.ops import score as jscore
@@ -211,3 +214,57 @@ def test_scoring_rejects_a_device_it_does_not_know():
                lambda t: score.counts_top2(t, 4)):
         with pytest.raises(ValueError, match="unsupported device"):
             fn(lab)
+
+
+PRIOR_CASES = [c[0] for c in chip_smoke.k5_prior_cases()]
+
+
+@pytest.mark.parametrize("case", PRIOR_CASES)
+def test_counts_top2_from_a_prior_equals_jax(case):
+    """K5's twin started from a prior (a cycled call's last pass) gives
+    the JAX package's counts_from_hits + read_results over prior +
+    counts: ties only the prior makes, all-zero rows, hits in the prior
+    alone, T + 1 at the small form's edge, R not a multiple of K5's reads
+    a block."""
+    lab, prior, T = next(c[1:] for c in chip_smoke.k5_prior_cases()
+                         if c[0] == case)
+    R, W = lab.shape
+    rid = np.repeat(np.arange(R, dtype=np.int32), W)
+    want = prior + np.asarray(jscore.counts_from_hits(
+        jnp.asarray(lab.ravel()), jnp.asarray(rid), R, T))
+    got = score.counts_top2(torch.from_numpy(lab), T, torch.from_numpy(prior))
+    assert got[0].dtype == torch.int32
+    assert np.array_equal(got[0].numpy(), want)
+    for g, w in zip(got[1:], jscore.read_results(jnp.asarray(want))):
+        assert g.dtype == torch.int32
+        assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_counts_top2_without_a_prior_is_unchanged(case):
+    """prior=None gives counts_top2's outputs as before, and an all-zero
+    prior the same."""
+    lab, T = _case(case)
+    lab = torch.from_numpy(lab)
+    R, W = lab.shape
+    rid = torch.arange(R, dtype=torch.int64).repeat_interleave(W)
+    counts = score.counts_from_hits_plain(lab.reshape(-1), rid, R, T)
+    want = (counts,) + score.read_results_plain(counts)
+    runs = [score.counts_top2(lab, T), score.counts_top2(lab, T, None)]
+    if kernels.counts_form(T + 1, W) == "small":
+        runs.append(score.counts_top2(lab, T, torch.zeros_like(counts)))
+    for got in runs:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("T, shape, match", [
+    (4096, (3, 4097), "small form"), (65535, (3, 65536), "small form"),
+    (16, (3, 16), r"prior must be \[3, 17\]"), (16, (2, 17), "prior must"),
+])
+def test_counts_top2_refuses_a_prior_it_cannot_take(T, shape, match):
+    """A prior needs K5's small form (T + 1 <= 4,096) and the [R, T+1]
+    shape, on the CPU as on the card."""
+    lab = torch.ones((3, 5), dtype=torch.int32)
+    with pytest.raises(ValueError, match=match):
+        score.counts_top2(lab, T, torch.zeros(shape, dtype=torch.int32))

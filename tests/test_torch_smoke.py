@@ -23,9 +23,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_phases_on_cpu(tmp_path, monkeypatch):
     dev = torch.device("cpu")
-    # + 13 + 9: K9's and K5's flat form's cases
+    # + 13 + 9 + 6: K9's, K5's flat form's and K5's prior cases
     assert chip_smoke.check_kernels(dev, big_tables=False) == (
-        21 + 10 + 45 + 12 + 12 + 13 + 29 + 9 + 13 + 9)
+        21 + 10 + 45 + 12 + 12 + 13 + 29 + 9 + 13 + 9 + 6)
     assert chip_smoke.check_goldens(dev, str(tmp_path)) == 6
     assert chip_smoke.check_golden_dbs(dev, str(tmp_path)) == 3
     dense = chip_smoke.check_dense_targets(dev, str(tmp_path), n_reads=40)

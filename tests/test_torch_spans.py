@@ -18,6 +18,8 @@ import torch
 
 from jn_cuclark_tpu_torch.engine import BatchPlan, Classifier
 from jn_cuclark_tpu_torch.io import fasta
+from jn_cuclark_tpu_torch.ops import kernels
+from jn_cuclark_tpu_torch.parallel.mesh import make_mesh
 from jn_cuclark_tpu_torch.utils import native, profiling
 
 from .test_torch_engine import GOLD, GOLDENS, golden_setup
@@ -236,6 +238,54 @@ def test_cycled_call_spans(tmp_path, cycles):
     assert ph.counts["cycle_finish"] == batches
     assert "chunk_upload" not in ph.counts
     assert ph.totals["cycle_accumulate"] + ph.totals["cycle_finish"] <= wall
+
+
+@pytest.mark.parametrize("finish, cycles", [
+    ("card", 2), ("card", 3), ("large form", 3), ("db mesh", 2)])
+def test_cycle_finish_counts_the_host_top2_bytes(tmp_path, monkeypatch,
+                                                 finish, cycles):
+    """`cycle_finish` records, as its `nbytes`, the counts the host's top-2
+    read: 0 for each batch of a counts run on one device, whose last pass
+    K5 scores from the earlier passes' counts; R x (T+1) x 4 for each batch
+    where the top-2 stays on the host: T + 1 past K5's small form (its edge
+    lowered here to 2 columns) and a db mesh, which sums its shards' counts
+    after each shard's K5.  The rows are the resident run's either way."""
+    if finish == "large form":
+        monkeypatch.setattr(kernels, "K5_SMALL_T1", 2)
+    mesh = (dict(mesh=make_mesh(2, device="cpu"), mesh_mode="db")
+            if finish == "db mesh" else {})
+    (tmp_path / "r").mkdir()
+    db, targets = golden_setup("fa", tmp_path)
+    _, _, _, prof, k, _, _ = GOLDENS["fa"]
+    clf = Classifier.load(db, targets, prof, k, device="cpu",
+                          db_cycles=cycles, **mesh, plan=BatchPlan(
+                              max_reads=16, cycle_strategy="counts"))
+    assert clf._card_finishes("counts") == (finish == "card")
+    prepared, seen = [], []
+    prepare, add = clf._cycled_prepare, profiling.Phases.add
+
+    def capture(*a, **kw):
+        prepared.append(prepare(*a, **kw))
+        return prepared[-1]
+
+    def record(self, name, seconds, nbytes=0):
+        if name == "cycle_finish":
+            seen.append(nbytes)
+        add(self, name, seconds, nbytes)
+
+    monkeypatch.setattr(clf, "_cycled_prepare", capture)
+    monkeypatch.setattr(profiling.Phases, "add", record)
+    data = open(READS, "rb").read()
+    with profiling.collect() as ph:
+        body = run_bytes(clf, data)[0]
+    assert body == run_bytes(_load(tmp_path / "r", 1), data)[0]
+    (specs, _, _), = prepared
+    assert ph.counts["cycle_finish"] == len(specs) > 1
+    t1 = clf.n_targets + 1
+    want = [0 if finish == "card" else r_pad * t1 * 4
+            for _, _, r_pad in specs]
+    assert seen == want
+    assert ph.nbytes.get("cycle_finish", 0) == sum(want)
 
 
 @pytest.mark.parametrize("mode", ["bytes", "file"])
