@@ -1547,7 +1547,7 @@ def run_path(dev, launches: dict, name: str, clf, reads: str, out: str, lens,
         csv = f.read()
     if clf.db_cycles > 1:
         residency = dict(cycles=clf.db_cycles,
-                         strategy=clf._cycled_strategy([lens]),
+                         strategy=clf._cycled_strategy(int(lens.max())),
                          chunk_device_bytes=clf.table_chunks[0]["slots"].nbytes)
     else:
         residency = dict(cycles=1, strategy="dense" if clf.dense_table is not None
@@ -1605,7 +1605,7 @@ def run_out_of_core(dev, tmp: str, prof: Profile, clf, fa: bytes, lens,
                                  "run's")
 
     cyc, m["load_cycles4_s"] = _load(dev, tmp, prof, db_cycles=4)
-    if cyc._cycled_strategy([lens]) != "counts":
+    if cyc._cycled_strategy(int(lens.max())) != "counts":
         raise AssertionError("4 cycles at 16 targets did not resolve to counts")
     path("cycled counts", cyc)
     path("cycled counts extended", cyc, extended=True)
@@ -1721,7 +1721,7 @@ def run_mesh(dev, tmp: str, prof: Profile, lens, launches: dict,
         plan=BatchPlan(cycle_strategy="counts"))
     for strategy in ("counts", "labels"):
         clf.plan = dataclasses.replace(clf.plan, cycle_strategy=strategy)
-        if clf._cycled_strategy([lens]) != strategy:
+        if clf._cycled_strategy(int(lens.max())) != strategy:
             raise AssertionError(f"the db mesh's cycles ran {strategy!r}?")
         path(f"mesh db cycled {strategy}", clf)
     del clf
@@ -1774,7 +1774,7 @@ def run_refseq(dev, tmp: str, launches: dict, n_targets: int = 5000,
     check_csv(os.path.join(tmp, "resident.csv"), expect)
     del clf
     cyc, m["load_cycles3_s"] = _load(dev, tmp, prof, db_cycles=3)
-    if cyc._cycled_strategy([lens]) != "labels":
+    if cyc._cycled_strategy(int(lens.max())) != "labels":
         raise AssertionError("3 cycles at 5,000 targets did not resolve to "
                              "labels")
     m["refseq cycled"], csv = run_path(dev, launches, "refseq cycled", cyc,

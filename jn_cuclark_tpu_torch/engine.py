@@ -46,8 +46,9 @@ Every other path runs the native host runtime, and a native runtime that
 fails to build raises.  The JAX package's `use_native=False` (its numpy
 fallback) and `BatchPlan.sort_batches` / `sort_window_batches` (its
 length-bucketed planner) are accepted and change nothing: the port plans
-resident batches in file order, which wrote the same CSV faster on the
-card, and needs no fallback for a runtime it always builds.
+resident and cycled batches in file order (`_plan_batches_stream`), which
+wrote the same CSV faster on the card, and needs no fallback for a runtime
+it always builds.
 """
 
 from __future__ import annotations
@@ -119,62 +120,26 @@ class BatchPlan:
     sort_batches: bool = True  # the JAX package's; unused (file order)
 
 
-def _stride_tiers(lengths: np.ndarray) -> np.ndarray:
-    """Vectorized pack.quantized_stride over a length array (exact parity:
-    multiples of 64 up to 1024, powers of two from 2048 above)."""
-    ln = np.maximum(np.asarray(lengths, dtype=np.int64), 1)
-    small = np.maximum((ln + 63) // 64 * 64, 64)
-    big = np.full_like(ln, 2048)
-    mask = big < ln
-    while mask.any():
-        big[mask] *= 2
-        mask = big < ln
-    return np.where(ln <= 1024, small, big)
-
-
-def _pad_rows(nb: int, r_cap: int) -> int:
-    """Row padding for a partial batch: powers of two up to 8192, multiples
-    of 8192 above, capped at the tier's full row count, so each tier uses a
-    bounded set of batch shapes while pad waste stays <= max(nb, 12.5%)."""
-    if nb <= 8192:
-        p = 2048
-        while p < nb:
-            p *= 2
-        return min(p, r_cap)
-    return min(-(-nb // 8192) * 8192, r_cap)
-
-
-def _pad_batch(words, vwords, r_pad: int):
-    """Zero-pad a packed batch's rows up to the planner's padded row count
-    (zero rows have no valid windows, so they score as empty and the
-    scatter-back ignores them)."""
-    nb = len(words)
-    if nb < r_pad:
-        words = np.concatenate(
-            [words, np.zeros((r_pad - nb, words.shape[1]), np.uint64)]
-        )
-        vwords = np.concatenate(
-            [vwords, np.zeros((r_pad - nb, vwords.shape[1]), np.uint64)]
-        )
-    return words, vwords
-
-
 class _ScanStream:
     """Record scan of an in-memory FASTA/FASTQ buffer, streamed from a
     background thread in record-aligned chunks (native scanner per chunk,
     offsets fixed up to be absolute) so batch planning/dispatch starts after
     the FIRST chunk instead of after the whole input.  Produces byte-for-byte
-    the same per-read arrays as one whole-buffer `native.scan_reads`."""
+    the same per-read arrays as one whole-buffer `native.scan_reads`, and
+    keeps the longest read's length as it goes."""
 
     def __init__(self, data: bytes, chunk_bytes: int = 8 << 20):
         self._parts: list[tuple] = []  # (ns, ne, ss, se, ln) per chunk
         self._cum: list[int] = [0]  # cumulative read counts
+        self._longest = 0
         self._done = False
         self._err: BaseException | None = None
         self._cond = threading.Condition()
 
         def run():
             try:
+                if not data:
+                    raise ValueError("empty input file")
                 if data[0:1] not in (b">", b"@"):
                     raise ValueError(
                         "failed to recognize the format of the file"
@@ -195,6 +160,8 @@ class _ScanStream:
                     with self._cond:
                         self._parts.append(part)
                         self._cum.append(self._cum[-1] + len(part[4]))
+                        self._longest = max(self._longest,
+                                            int(part[4].max(initial=0)))
                         self._cond.notify_all()
             except BaseException as e:  # re-raised by readers
                 self._err = e
@@ -228,6 +195,12 @@ class _ScanStream:
             if self._err is not None:
                 raise self._err
             return self._cum[-1]
+
+    def longest(self) -> int:
+        """The longest read's length (0 for no reads), once the scan has
+        ended."""
+        self.total()
+        return self._longest
 
     def arrays(self, r0: int, r1: int):
         """(ns, ne, ss, se, ln) for reads [r0, r1) — caller must have
@@ -305,6 +278,22 @@ class _Scored(typing.NamedTuple):
 
     scalars: np.ndarray
     counts: np.ndarray | None
+
+
+@dataclasses.dataclass(eq=False)
+class _CycledBatch:
+    """One batch of a cycled call: reads [r0, r1) of its input at
+    `stride`, packed in pass 0 (`packed`: Classifier._pack's tuple), and
+    what the passes left in `acc` (each cycle's label grids, the summed
+    counts, or the card's _Scored)."""
+
+    data: bytes
+    scan: _ScanStream
+    r0: int
+    r1: int
+    stride: int
+    packed: tuple | None = None
+    acc: typing.Any = None
 
 
 def _check_label_range(labels, table, n_targets: int):
@@ -711,22 +700,15 @@ class Classifier:
         first row to its last.  The flat path (packed=False) parses the
         input with numpy; every other path runs the native host runtime."""
         t0 = time.perf_counter()
-        if not self.packed:
-            rs = parse_reads(data)
-            rows = self._classify_flat(rs, paired, extended, hit_stats)
-            n_reads = rs.n_reads
-        elif self.db_cycles > 1:
-            with maybe_phase("scan"):
-                _, ns, ne, ss, se, ln = native.scan_reads(data)
-            rows = self._classify_cycled_native(
-                data, ns, ne, ss, se, ln, paired, extended, hit_stats)
-            n_reads = len(ln)
-        else:
+        n_reads = None
+        if self.packed and self.db_cycles == 1:
+            # counted before the scan starts, so that the rows stream: the
+            # scan's total is known only at their end
             with maybe_phase("count_reads"):
                 n_reads = native.quick_count(data)
-            scan = _ScanStream(data, self.plan.scan_chunk_bytes)
-            rows = self._classify_native(data, scan, t0, paired, extended,
-                                         hit_stats)
+        rows, count = self._route(data, paired, extended, hit_stats, t0)
+        if n_reads is None:
+            n_reads = count()
         if self._one_call is None:
             return rows, n_reads
         return self._exclusive_rows(rows), n_reads
@@ -751,6 +733,26 @@ class Classifier:
     def _exclusive_rows(self, rows):
         with self._exclusive():
             yield from rows
+
+    def _route(self, data, paired, extended, hit_stats, t0):
+        """(rows, count) of one in-memory input on the call's path: the
+        flat path (packed=False), the cycled one (db_cycles > 1) or the
+        resident one.  count() gives the number of reads: the flat path's
+        parse knows it at once, the others' scan at its end, which a
+        cycled call waits for before its first pass.  `t0` is the call's
+        start (time.perf_counter)."""
+        if not self.packed:
+            rs = parse_reads(data)
+            return (self._classify_flat(rs, paired, extended, hit_stats),
+                    lambda: rs.n_reads)
+        scan = _ScanStream(data, self.plan.scan_chunk_bytes)
+        if self.db_cycles > 1:
+            rows = self._classify_cycled(data, scan, paired, extended,
+                                         hit_stats)
+        else:
+            rows = self._classify_native(data, scan, t0, paired, extended,
+                                         hit_stats)
+        return rows, scan.total
 
     def classify_file(
         self,
@@ -789,42 +791,19 @@ class Classifier:
         first = next(slabs, None)
         # slab i+1 materializes (mmap page-in / paired merge) in a worker
         # thread while slab i classifies; the record scan itself streams
-        # inside _classify_native.  The cycled path wants whole-slab
-        # arrays, so slab i+1 is also scanned in that thread.
-        cycled = self.packed and self.db_cycles > 1
-
-        def stage(slab):
-            if not cycled:
-                return slab, None
-            with maybe_phase("scan"):
-                return slab, native.scan_reads(slab)
-
-        scanned = (
-            self._pipelined(itertools.chain([first], slabs), stage, depth=1)
-            if first is not None else iter(())
-        )
+        # inside the call's path
+        slabs = (self._pipelined(itertools.chain([first], slabs),
+                                 lambda slab: slab, depth=1)
+                 if first is not None else iter(()))
         hs = HitStats(self.n_targets) if extended else None
         with open(out, "wb") as f:
             f.write(self._header(extended))
-            for slab, scn in scanned:
-                scan = None
-                if not self.packed:
-                    rs = parse_reads(slab)
-                    gen = self._classify_flat(rs, paired, extended, hs)
-                    nr = rs.n_reads
-                elif cycled:
-                    _, ns, ne, ss, se, ln = scn
-                    gen = self._classify_cycled_native(
-                        slab, ns, ne, ss, se, ln, paired, extended, hs)
-                    nr = len(ln)
-                else:
-                    t_slab = time.perf_counter()
-                    scan = _ScanStream(slab, self.plan.scan_chunk_bytes)
-                    gen = self._classify_native(slab, scan, t_slab, paired,
-                                                extended, hs)
-                for chunk in gen:
+            for slab in slabs:
+                rows, count = self._route(slab, paired, extended, hs,
+                                          time.perf_counter())
+                for chunk in rows:
                     f.write(chunk)
-                n_reads += nr if scan is None else scan.total()
+                n_reads += count()
         dt = time.time() - t0
         stats = {
             "reads": n_reads,
@@ -907,131 +886,73 @@ class Classifier:
         every sample's batches probe it, so N samples stream the table once
         instead of N times; each sample then finishes on its own."""
         t0 = time.time()
-        samples = []
-        for objects_path, paired_path, result_path in items:
+        inputs = []
+        for objects_path, paired_path, _ in items:
             with open(objects_path, "rb") as f:
                 data = f.read()
-            paired = paired_path is not None
-            if paired:
+            if paired_path is not None:
                 with open(paired_path, "rb") as f:
                     data = merge_paired(data, f.read())
-            with maybe_phase("scan"):
-                _, ns, ne, ss, se, ln = native.scan_reads(data)
-            samples.append(dict(result=result_path, paired=paired,
-                                lengths=ln, io=self._native_io(data, ns, ne,
-                                                               ss, se)))
-        strategy = self._cycled_strategy([s["lengths"] for s in samples])
-        for s in samples:
-            s["specs"], s["packed"], s["pcs"] = self._cycled_prepare(
-                s["lengths"], s["io"][0], strategy, extended)
-            s["acc"] = [None] * len(s["specs"])
-        self._run_passes(strategy, [(s["packed"], s["acc"], s["pcs"])
-                                    for s in samples], extended)
+            inputs.append((data, _ScanStream(data,
+                                             self.plan.scan_chunk_bytes)))
+        strategy = self._cycled_strategy(
+            max(scan.longest() for _, scan in inputs))
         outs = []
-        for s in samples:
-            out = s["result"] + ".csv"
+        for (_, paired_path, result_path), batches in zip(
+                items, self._run_passes(strategy, inputs, extended)):
+            out = result_path + ".csv"
             with open(out, "wb") as f:
                 f.write(self._header(extended))
-                for chunk in self._cycled_finish(
-                    s["specs"], s["acc"], strategy, s["lengths"],
-                    s["paired"], extended, s["io"][1],
-                ):
+                for chunk in self._cycled_rows(batches, strategy,
+                                               paired_path is not None,
+                                               extended):
                     f.write(chunk)
             outs.append(out)
         # samples interleave inside each chunk's pass, so a sample's own
         # wall time is not separable: every sample reports the shared wall
         # and the aggregate rate, flagged as such
         dt = time.time() - t0
-        n_total = sum(len(s["lengths"]) for s in samples)
+        n_reads = [scan.total() for _, scan in inputs]
         return [
             {
-                "reads": len(s["lengths"]),
+                "reads": n,
                 "seconds": dt,
-                "reads_per_min": int(n_total / dt * 60.0) if dt > 0 else 0,
+                "reads_per_min": (int(sum(n_reads) / dt * 60.0) if dt > 0
+                                  else 0),
                 "result": out,
                 "aggregate": True,
             }
-            for s, out in zip(samples, outs)
+            for n, out in zip(n_reads, outs)
         ]
 
-    def _native_io(self, data, ns, ne, ss, se):
-        """(packer, formatter) of one in-memory input for the cycled path:
-        packer(idx, stride) packs reads idx; formatter(r0, r1, ...) formats
-        reads [r0, r1) from their scored scalars (and dense counts)."""
-
-        def packer(idx, stride):
-            return native.pack_batch(data, ss[idx], se[idx], stride)
-
-        def formatter(r0, r1, total, ib, b, sb, norm, counts):
-            with maybe_phase("format"):
-                return native.format_rows(
-                    data, ns[r0:r1], ne[r0:r1], total, ib, b, sb, norm,
-                    self.k, self.names, counts=counts,
-                    n_targets=self.n_targets if counts is not None else 0,
-                )
-
-        return packer, formatter
-
-    def _format_rows(self, names, total, ib, b, sb, norm, counts) -> bytes:
-        """`_format_row` over a run of reads (counts: their dense [n, T+1]
-        rows, or None)."""
-        return b"".join(
-            _format_row(name, int(total[i]), int(ib[i]), int(b[i]),
-                        int(sb[i]), int(norm[i]), self.k, self.target_names,
-                        None if counts is None else counts[i])
-            for i, name in enumerate(names))
-
-    def _classify_cycled_native(self, data, ns, ne, ss, se, lengths, paired,
-                                extended, hit_stats=None):
+    def _classify_cycled(self, data, scan: _ScanStream, paired, extended,
+                         hit_stats=None):
         """Cycle-outer / batch-inner classification of one input: every
         batch is packed once, probed against each chunk in turn, its
         labels or counts accumulated on the host (the reference's
         swapDbParts + host-row merge, CuCLARK_hh.hh:1765-1772), then scored
         and formatted in file order."""
-        packer, formatter = self._native_io(data, ns, ne, ss, se)
-        strategy = self._cycled_strategy([lengths])
-        specs, packed, pcs = self._cycled_prepare(lengths, packer, strategy,
-                                                  extended)
-        acc = [None] * len(specs)
-        self._run_passes(strategy, [(packed, acc, pcs)], extended)
-        yield from self._cycled_finish(specs, acc, strategy, lengths, paired,
-                                       extended, formatter, hit_stats)
+        strategy = self._cycled_strategy(scan.longest())
+        (batches,) = self._run_passes(strategy, [(data, scan)], extended)
+        yield from self._cycled_rows(batches, strategy, paired, extended,
+                                     hit_stats)
 
-    def _cycled_strategy(self, lengths_list) -> str:
-        """The accumulation strategy of a cycled run over its inputs:
-        labels cost 2-4 B per window per cycle, dense counts 4 (T+1) B per
-        read whatever the cycles, so labels win once the target count
-        passes the per-read window count (RefSeq-scale databases)."""
+    def _cycled_strategy(self, longest: int) -> str:
+        """The accumulation strategy of a cycled run whose longest read is
+        `longest`: labels cost 2-4 B per window per cycle, dense counts
+        4 (T+1) B per read whatever the cycles, so labels win once the
+        target count passes the per-read window count (RefSeq-scale
+        databases)."""
         strategy = self.plan.cycle_strategy
         if strategy not in ("auto", "labels", "counts"):
             raise ValueError(f"unknown cycle_strategy {strategy!r}")
         if strategy != "auto":
             return strategy
-        max_stride = max((int(_stride_tiers(ln).max())
-                          for ln in lengths_list if len(ln)), default=0)
-        max_windows = max(max_stride - (self.k - 1), 0)
+        max_windows = max(pack.quantized_stride(max(longest, 1))
+                          - (self.k - 1), 0)
         lab_bytes = (2 if self.n_targets < 65535 else 4) * self.db_cycles
         return ("labels" if max_windows * lab_bytes < 4 * (self.n_targets + 1)
                 else "counts")
-
-    def _cycled_prepare(self, lengths, packer, strategy, extended):
-        """Plan and pack one input's batches for the passes: (specs
-        [(idx, stride, r_pad)], packed batches, probe_cols), the reads
-        length-bucketed over the whole input.  Where a batch makes a dense
-        count matrix (the counts strategy, an extended finish) its rows are
-        capped to DENSE_COUNTS_BYTES."""
-        max_reads = self.plan.max_reads
-        if strategy == "counts" or extended:
-            max_reads = self._dense_rows(max_reads)
-        lengths = np.asarray(lengths)
-        specs = self._window_specs(_stride_tiers(lengths), max_reads)
-        packed, pcs = [], []
-        for idx, stride, r_pad in specs:
-            with maybe_phase("pack"):
-                words, vwords = packer(idx, stride)
-                packed.append(_pad_batch(words, vwords, r_pad))
-            pcs.append(self._probe_cols(lengths[idx].max(initial=1), stride))
-        return specs, packed, pcs
 
     def _dense_rows(self, max_reads: int) -> int:
         """max_reads capped so that a batch's dense [R, T+1] counts fit
@@ -1041,21 +962,38 @@ class Classifier:
 
     def _run_passes(self, strategy, inputs, extended=False):
         """One pass per table chunk over every input's batches; inputs are
-        (packed batches, accumulators, probe_cols) triples.  Where the card
-        finishes (_card_finishes), the last pass scores each batch."""
-        if not any(packed for packed, _, _ in inputs):
-            return
+        (data, scan) pairs, whose scans have ended.  Pass 0 plans each
+        input's batches in file order (_plan_batches_stream) and packs each
+        in its dispatch; the later passes reuse the packed words.  Where a
+        batch makes a dense count matrix (the counts strategy, an extended
+        finish) its rows are capped to DENSE_COUNTS_BYTES.  Where the card
+        finishes (_card_finishes), the last pass scores each batch.
+        Returns each input's list of _CycledBatch."""
+        max_reads = self.plan.max_reads
+        if strategy == "counts" or extended:
+            max_reads = self._dense_rows(max_reads)
+        batches: list[list[_CycledBatch]] = [[] for _ in inputs]
+        if not any(scan.total() for _, scan in inputs):
+            return batches
+
+        def planned():
+            for (data, scan), out in zip(inputs, batches):
+                for r0, r1, stride, _ in self._plan_batches_stream(
+                        scan, max_reads):
+                    out.append(_CycledBatch(data, scan, r0, r1, stride))
+                    yield out[-1]
+
         n_passes, begin_pass, end_pass = self._cycle_passes(strategy)
         card = self._card_finishes(strategy)
         for j in range(n_passes):
-            pass_fn = begin_pass(j)
-            finish = card and j == n_passes - 1
+            step = begin_pass(j)
             try:
-                for packed, acc, pcs in inputs:
-                    self._cycled_accumulate(pass_fn, packed, acc, strategy,
-                                            pcs, finish, extended)
+                self._cycled_pass(
+                    step, planned() if j == 0 else itertools.chain(*batches),
+                    strategy, card and j == n_passes - 1, extended)
             finally:
                 end_pass()
+        return batches
 
     def _card_finishes(self, strategy) -> bool:
         """Whether a cycled call's last pass scores each batch on the card:
@@ -1203,89 +1141,78 @@ class Classifier:
             done.synchronize()  # both slices are free for the next upload
         return slots, done
 
-    def _cycled_accumulate(self, step, packed_batches, acc, strategy, pcs,
-                           finish=False, extended=False):
-        """Run one pass's step over every packed batch and accumulate on
-        the host: a cycle's label grids are appended (they concatenate
-        along the window axis), counts add.  With `finish` (the last pass,
-        _card_finishes) each batch's step starts from its summed counts and
-        returns the read's scalars, kept as a _Scored (with the final
-        counts where `extended`).  Dispatch runs in a worker thread and the
-        fetches overlap it."""
+    def _cycled_pass(self, step, batches, strategy, finish=False,
+                     extended=False):
+        """Run one pass's step over every batch and accumulate on the host:
+        a cycle's label grids are appended (they concatenate along the
+        window axis), counts add.  A batch not yet packed is packed in its
+        dispatch.  With `finish` (the last pass, _card_finishes) each
+        batch's step starts from its summed counts and returns the read's
+        scalars, kept as a _Scored (with the final counts where
+        `extended`)."""
         dev = self.device
 
-        def dispatch(item):
-            bi, (words, vwords) = item
+        def dispatch(b):
+            if b.packed is None:
+                b.packed = self._pack(b.data, b.scan, b.r0, b.r1, b.stride)
+            _, words, vwords, pc = b.packed
             with maybe_phase("dispatch"):
                 kw = {}
                 if finish:  # the earlier passes' counts (n_passes > 1)
                     kw = dict(scores=True,
-                              prior=torch.from_numpy(acc[bi]).to(dev))
-                return bi, step(_to_dev(words, dev), _to_dev(vwords, dev),
-                                probe_cols=pcs[bi], **kw)
+                              prior=torch.from_numpy(b.acc).to(dev))
+                return b, step(_to_dev(words, dev), _to_dev(vwords, dev),
+                               probe_cols=pc, **kw)
 
-        def fetch(item):
-            bi, out = item
+        def fetch(entry):
+            # a mesh's step may return pad rows past the batch's own
+            b, out = entry
+            nb = b.r1 - b.r0
             with maybe_phase("device_wait"):
                 if not finish:
-                    return bi, out.cpu().numpy()
+                    return b, out[:nb].cpu().numpy()
                 scalars, counts = out
-                return bi, _Scored(scalars.cpu().numpy(),
-                                   counts.cpu().numpy() if extended else None)
+                return b, _Scored(scalars.cpu().numpy(),
+                                  counts.cpu().numpy() if extended else None)
 
-        entries = self._pipelined(enumerate(packed_batches), dispatch,
-                                  put_wait="queue_full",
-                                  get_wait="batch_wait")
-        for bi, c in self._pipelined_pool(entries, fetch, workers=2, depth=2,
-                                          wait="fetch_wait"):
+        for b, c in self._dispatch_fetch(batches, dispatch, fetch):
             with maybe_phase("cycle_accumulate"):
-                if finish:
-                    acc[bi] = c
+                if finish or b.acc is None:
+                    b.acc = [c] if strategy == "labels" else c
                 elif strategy == "labels":
-                    acc[bi] = [c] if acc[bi] is None else acc[bi] + [c]
-                elif acc[bi] is None:
-                    acc[bi] = c
+                    b.acc.append(c)
                 else:
-                    acc[bi] += c
+                    b.acc += c
 
-    def _cycled_finish(self, specs, acc, strategy, lengths, paired, extended,
-                       formatter, hit_stats=None):
-        """Score the accumulated batches, scatter to file order and yield
-        the formatted CSV chunks.  Labels: one device top-2 (K3; K5 when
-        extended) over each batch's concatenated cycles.  Counts: the card
-        scored each batch in its last pass where it could (_card_finishes),
-        else the top-2 over the summed [R, T+1] counts runs on the host, as
-        the JAX package's read_results orders it (count desc, lowest target
-        first).  Each batch's `cycle_finish` span carries the bytes of
-        counts the host's top-2 read (0 where the card scored)."""
-        n_reads = len(lengths)
-        norm_all = lengths - (NBN if paired else 0)
-        # a read's total, ibest, best, sbest side by side: a batch's scatter
-        # writes one 16-B row a read
-        res_g = np.zeros((n_reads, 4), np.int32)
-        cnt_g = (np.zeros((n_reads, self.n_targets + 1), np.int32)
-                 if extended else None)
-        for (idx, _, _), got in zip(specs, acc):
+    def _cycled_rows(self, batches, strategy, paired, extended,
+                     hit_stats=None):
+        """Score each of one input's batches after the last pass and
+        format it at once, in file order.  Labels: one device top-2 (K3;
+        K5 when extended) over the batch's concatenated cycles.  Counts:
+        the card scored the batch in its last pass where it could
+        (_card_finishes), else the top-2 over its summed [R, T+1] counts
+        runs on the host (score.read_results_plain: count desc, lowest
+        target first).  Each batch's `cycle_finish` span carries the bytes
+        of counts the host's top-2 read (0 where the card scored)."""
+        nbn = NBN if paired else 0
+        for b in batches:
+            got = b.acc
             host = strategy == "counts" and not isinstance(got, _Scored)
             with maybe_phase("cycle_finish", got.nbytes if host else 0):
-                self._cycled_score(idx, got, strategy, extended, res_g, cnt_g)
-        if hit_stats is not None and extended:
-            hit_stats.update_counts(cnt_g)
-        CH = 1 << 16
-        for r0 in range(0, n_reads, CH):
-            r1 = min(r0 + CH, n_reads)
-            yield formatter(r0, r1, *res_g[r0:r1].T, norm_all[r0:r1],
-                            cnt_g[r0:r1] if extended else None)
+                res, counts = self._cycled_score(got, strategy, extended)
+            if hit_stats is not None and extended:
+                hit_stats.update_counts(counts)
+            (ns, ne, ln), *_ = b.packed
+            b.packed = b.acc = None
+            with maybe_phase("format"):
+                rows = self._csv_rows(b.data, ns, ne, res, ln - nbn, counts)
+            yield rows
 
-    def _cycled_score(self, idx, got, strategy, extended, res_g, cnt_g):
-        """Score one batch's accumulated cycles into the file-order
-        results res_g [n_reads, 4] (and cnt_g's dense rows, extended)."""
-        nb = len(idx)
+    def _cycled_score(self, got, strategy, extended):
+        """(res [4, R] (total, ibest, best, sbest), dense counts [R, T+1]
+        where extended, else None) of one batch's accumulated cycles."""
         if isinstance(got, _Scored):
-            res_g[idx] = got.scalars[:nb]
-            if extended:
-                cnt_g[idx] = got.counts[:nb]
-            return
+            return got.scalars.T, got.counts
         if strategy == "labels":
             lab = got[0] if len(got) == 1 else np.concatenate(got, axis=1)
             if lab.dtype == np.int16:  # u16 bits: widen as unsigned
@@ -1294,22 +1221,11 @@ class Classifier:
             with torch.inference_mode():
                 total, ib, b, sb, counts = device_pipeline.score_from_labels(
                     lab, n_targets=self.n_targets, extended=extended)
-            res_g[idx] = torch.stack(
-                [total, ib, b, sb], dim=1)[:nb].cpu().numpy()
-            if extended:
-                cnt_g[idx] = counts[:nb].cpu().numpy()
-            return
-        t = got[:nb, 1:]
-        best = t.max(axis=1) if t.shape[1] else np.zeros(nb, np.int32)
-        ib = t.argmax(axis=1) if t.shape[1] else np.zeros(nb, np.int64)
-        masked = t.copy()
-        if t.shape[1]:
-            masked[np.arange(nb), ib] = -1
-        res_g[idx] = np.stack([
-            t.sum(axis=1, dtype=np.int64), np.where(best > 0, ib + 1, 0), best,
-            np.maximum(masked.max(axis=1, initial=0), 0)], axis=1)
-        if extended:
-            cnt_g[idx] = got[:nb]
+            return (torch.stack([total, ib, b, sb]).cpu().numpy(),
+                    counts.cpu().numpy() if extended else None)
+        total, ib, b, _, sb = score.read_results_plain(torch.from_numpy(got))
+        return (torch.stack([total, ib, b, sb]).numpy(),
+                got if extended else None)
 
     def _probe_cols(self, max_len, stride: int) -> int:
         """Probed-window count for a batch whose longest read is max_len at
@@ -1340,7 +1256,6 @@ class Classifier:
         longest read's stride tier; each batch formats with one native call
         as soon as it is fetched.  `t0` is the call's start
         (time.perf_counter), from which a collector measures its fill."""
-        k = self.k
         dev = self.device
         nbn = NBN if paired else 0
         # extended columns from the device's sorted label grid (O(windows)
@@ -1351,15 +1266,10 @@ class Classifier:
         max_reads = self.plan.max_reads
         if extended and not ext_runs:
             max_reads = self._dense_rows(max_reads)
-        n_targets = self.n_targets if extended else 0
         edges = profiling.edges(t0)
 
         def dispatch(spec):
-            r0, r1, stride, _ = spec
-            ns, ne, ss, se, ln = scan.arrays(r0, r1)
-            pc = self._probe_cols(ln.max(initial=1), stride)
-            with maybe_phase("pack"):
-                words, vwords = native.pack_batch(data, ss, se, stride)
+            meta, words, vwords, pc = self._pack(data, scan, *spec[:3])
             with maybe_phase("dispatch"):
                 total, ib, b, sb, extra = self.batch_fn(
                     _to_dev(words, dev), _to_dev(vwords, dev),
@@ -1367,7 +1277,7 @@ class Classifier:
                 res = torch.stack([total, ib, b, sb])
             if edges is not None:
                 edges.dispatched()
-            return (ns, ne, ln), res, extra
+            return meta, res, extra
 
         def fetch(entry):
             # every launch and copy goes to the device's current (default)
@@ -1382,29 +1292,43 @@ class Classifier:
                 extra = extra.view(np.uint16)
             return meta, res, extra
 
-        entries = self._pipelined(self._plan_batches_stream(scan, max_reads),
-                                  dispatch, put_wait="queue_full",
-                                  get_wait="batch_wait")
-        for (ns, ne, ln), res, extra in self._pipelined_pool(
-                entries, fetch, workers=2, depth=2, wait="fetch_wait"):
+        for (ns, ne, ln), res, extra in self._dispatch_fetch(
+                self._plan_batches_stream(scan, max_reads), dispatch, fetch):
             if extended and hit_stats is not None:
                 if ext_runs:
                     hit_stats.update_runs(extra)
                 else:
                     hit_stats.update_counts(extra)
             with maybe_phase("format"):
-                rows = native.format_rows(
-                    data, ns, ne, *res, ln - nbn, k, self.names,
-                    counts=extra if extended and not ext_runs else None,
-                    sorted_runs=extra if ext_runs else None,
-                    n_targets=n_targets,
-                )
+                rows = self._csv_rows(data, ns, ne, res, ln - nbn, extra,
+                                      runs=ext_runs)
                 if edges is not None:
                     edges.taken()
                 with maybe_phase("rows_held"):
                     yield rows
         if edges is not None:
             edges.close()
+
+    def _pack(self, data, scan: _ScanStream, r0: int, r1: int, stride: int):
+        """Reads [r0, r1) of a scanned input packed at `stride`:
+        ((ns, ne, ln), words, vwords, probe_cols)."""
+        ns, ne, ss, se, ln = scan.arrays(r0, r1)
+        pc = self._probe_cols(ln.max(initial=1), stride)
+        with maybe_phase("pack"):
+            words, vwords = native.pack_batch(data, ss, se, stride)
+        return (ns, ne, ln), words, vwords, pc
+
+    def _csv_rows(self, data, ns, ne, res, norm, extra=None,
+                  runs=False) -> bytes:
+        """One batch's CSV rows by the native formatter: `res` its reads'
+        (total, ibest, best, sbest); `extra` None, or for extended rows
+        their dense counts [R, T+1] or, with `runs`, their sorted label
+        rows [R, W] u16."""
+        return native.format_rows(
+            data, ns, ne, *res, norm, self.k, self.names,
+            counts=None if runs else extra,
+            sorted_runs=extra if runs else None,
+            n_targets=0 if extra is None else self.n_targets)
 
     # ------------------------------------------------------ the flat path
     def _classify_flat(self, rs: ReadSet, paired: bool, extended: bool,
@@ -1438,7 +1362,27 @@ class Classifier:
                 yield self._format_rows(names[r0:r1], *res, norm[r0:r1],
                                         counts)
 
+    def _format_rows(self, names, total, ib, b, sb, norm, counts) -> bytes:
+        """`_format_row` over a run of reads (counts: their dense [n, T+1]
+        rows, or None)."""
+        return b"".join(
+            _format_row(name, int(total[i]), int(ib[i]), int(b[i]),
+                        int(sb[i]), int(norm[i]), self.k, self.target_names,
+                        None if counts is None else counts[i])
+            for i, name in enumerate(names))
+
     # --------------------------------------------------- threaded pipelining
+    def _dispatch_fetch(self, items, dispatch, fetch):
+        """fetch(dispatch(item)) of each item, in order: dispatch runs in a
+        worker thread up to BatchPlan.pipeline_depth batches ahead, and two
+        fetch threads copy consecutive batches back, two ahead.  The waits
+        are `queue_full` (the worker's), `batch_wait` and `fetch_wait` (the
+        caller's)."""
+        entries = self._pipelined(items, dispatch, put_wait="queue_full",
+                                  get_wait="batch_wait")
+        return self._pipelined_pool(entries, fetch, workers=2, depth=2,
+                                    wait="fetch_wait")
+
     def _pipelined_pool(self, items, fn, workers: int, depth: int,
                         wait: str | None = None):
         """Ordered map with `workers` concurrent fn calls, up to `depth`
@@ -1555,26 +1499,6 @@ class Classifier:
                 r_cap = max(min(max_reads, budget // stride), 1)
             yield r0, r1, stride, r_cap
             r0 = r1
-
-    # ------------------------------------- length-bucketed planning (cycled)
-    def _window_specs(self, tiers: np.ndarray, max_reads: int):
-        """Window-relative batch specs [(idx, stride, r_pad)]: reads grouped
-        by stride tier (np.unique ascending; original order preserved within
-        each tier, so scattered results reproduce file order exactly)."""
-        budget = self.plan.window_budget
-        specs = []
-        for t in np.unique(tiers):
-            t = int(t)
-            if t > budget:
-                raise RuntimeError(
-                    f"read of length ~{t} exceeds window budget {budget}"
-                )
-            idx = np.nonzero(tiers == t)[0]
-            r_cap = max(min(max_reads, budget // t), 1)
-            for i in range(0, len(idx), r_cap):
-                chunk = idx[i : i + r_cap]
-                specs.append((chunk, t, _pad_rows(len(chunk), r_cap)))
-        return specs
 
 
 def flat_queries(rs: ReadSet, k: int):

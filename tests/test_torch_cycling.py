@@ -24,11 +24,13 @@ from jn_cuclark_tpu.ops import radix_table as jrt
 from jn_cuclark_tpu.utils import memory as jmemory
 from jn_cuclark_tpu_torch import cli
 from jn_cuclark_tpu_torch.database import DBConfig
-from jn_cuclark_tpu_torch.engine import BatchPlan, Classifier
+from jn_cuclark_tpu_torch.engine import BatchPlan, Classifier, _ScanStream
 from jn_cuclark_tpu_torch.io import dbformat
 from jn_cuclark_tpu_torch.ops import device_pipeline, kernels, radix_table
 from jn_cuclark_tpu_torch.params import Profile
 from jn_cuclark_tpu_torch.utils import memory, native
+
+from .test_torch_engine import GOLD, GOLDENS, golden_setup
 
 K = 9
 
@@ -321,7 +323,44 @@ def test_cycled_csv_byte_equal(db, tmp_path, cycles, strategy, extended):
     jclf = _load(db, tmp_path, "jax", db_cycles=cycles, strategy=strategy)
     assert _csv(jclf, reads, str(tmp_path / "jax"), extended=extended) == got
     if strategy == "auto":  # 3 targets: dense counts are the smaller
-        assert clf._cycled_strategy([np.array([100])]) == "counts"
+        assert clf._cycled_strategy(100) == "counts"
+
+
+@pytest.mark.parametrize("strategy", ["counts", "labels"])
+@pytest.mark.parametrize("cycles", [2, 3])
+def test_cycled_batches_follow_the_file_order_plan(tmp_path, monkeypatch,
+                                                   cycles, strategy):
+    """A cycled call packs the batches a resident call plans
+    (_plan_batches_stream: consecutive reads in file order, each batch at
+    its longest read's stride tier), each once, and writes the resident
+    run's CSV.  The golden reads span the 64, 128 and 192 tiers; 7 reads
+    a batch, and 6 at the 192 tier's window budget."""
+    db, targets = golden_setup("fa", tmp_path)
+    _, _, _, prof, k, reads, _ = GOLDENS["fa"]
+    with open(os.path.join(GOLD, reads), "rb") as f:
+        data = f.read()
+    plan = BatchPlan(max_reads=7, window_budget=6 * 192,
+                     cycle_strategy=strategy)
+    resident = Classifier.load(db, targets, prof, k, device="cpu", plan=plan)
+    want_rows = b"".join(resident.classify_bytes(data)[0])
+    want = [(r0, r1, stride) for r0, r1, stride, _ in
+            resident._plan_batches_stream(_ScanStream(data), 7)]
+    assert len({stride for *_, stride in want}) == 3
+    assert len({r1 - r0 for r0, r1, _ in want}) > 1
+    cycled = Classifier.load(db, targets, prof, k, device="cpu",
+                             db_cycles=cycles, plan=plan)
+    starts = native.scan_reads(data)[3]
+    pack_batch, packed = native.pack_batch, []
+
+    def spy(buf, ss, se, stride):
+        r0 = int(np.searchsorted(starts, ss[0]))
+        packed.append((r0, r0 + len(ss), stride))
+        return pack_batch(buf, ss, se, stride)
+
+    monkeypatch.setattr(native, "pack_batch", spy)
+    rows, n_reads = cycled.classify_bytes(data)
+    assert b"".join(rows) == want_rows and n_reads == 202
+    assert packed == want
 
 
 def test_cycled_labels_widen_u16_as_unsigned(tmp_path):

@@ -231,7 +231,7 @@ def test_cycled_call_spans(tmp_path, cycles):
     with profiling.collect() as ph:
         body, _, wall = run_bytes(clf, data)
     assert body.count(b"\n") == 202
-    batches = ph.counts["pack"]  # length-bucketed over the whole input
+    batches = ph.counts["pack"]  # file order, each packed once in pass 0
     assert batches > 1
     assert ph.counts["cycle_accumulate"] == batches * cycles
     assert ph.counts["dispatch"] == batches * cycles
@@ -261,29 +261,29 @@ def test_cycle_finish_counts_the_host_top2_bytes(tmp_path, monkeypatch,
                           db_cycles=cycles, **mesh, plan=BatchPlan(
                               max_reads=16, cycle_strategy="counts"))
     assert clf._card_finishes("counts") == (finish == "card")
-    prepared, seen = [], []
-    prepare, add = clf._cycled_prepare, profiling.Phases.add
+    planned, seen = [], []
+    plan_batches, add = clf._plan_batches_stream, profiling.Phases.add
 
     def capture(*a, **kw):
-        prepared.append(prepare(*a, **kw))
-        return prepared[-1]
+        for spec in plan_batches(*a, **kw):
+            planned.append(spec)
+            yield spec
 
     def record(self, name, seconds, nbytes=0):
         if name == "cycle_finish":
             seen.append(nbytes)
         add(self, name, seconds, nbytes)
 
-    monkeypatch.setattr(clf, "_cycled_prepare", capture)
+    monkeypatch.setattr(clf, "_plan_batches_stream", capture)
     monkeypatch.setattr(profiling.Phases, "add", record)
     data = open(READS, "rb").read()
     with profiling.collect() as ph:
         body = run_bytes(clf, data)[0]
     assert body == run_bytes(_load(tmp_path / "r", 1), data)[0]
-    (specs, _, _), = prepared
-    assert ph.counts["cycle_finish"] == len(specs) > 1
+    assert ph.counts["cycle_finish"] == len(planned) > 1
     t1 = clf.n_targets + 1
-    want = [0 if finish == "card" else r_pad * t1 * 4
-            for _, _, r_pad in specs]
+    want = [0 if finish == "card" else (r1 - r0) * t1 * 4
+            for r0, r1, _, _ in planned]
     assert seen == want
     assert ph.nbytes.get("cycle_finish", 0) == sum(want)
 
